@@ -1,0 +1,524 @@
+"""PipelineDefinition + single-device executor (PyTorch/CUDA).
+
+Port of ``accvlab_tpu/pipeline/pipeline.py``. The executor has the same
+stages:
+
+* a **host stage**: parallel workers run the input callable and the
+  host-placed steps per sample (numpy; per-sample semantics as in JAX),
+* the **uniform boundary**: per-field per-sample arrays are stacked into
+  batched numpy arrays (strings NUL-padded to the batch max),
+* the **transfer**: the whole batch crosses to the device in packed pinned
+  chunks (``hostcopy.start_copy``, one ``non_blocking`` copy per chunk),
+* one **device stage**: the device-placed steps run eagerly, in order, on
+  BATCHED tensors (the JAX package instead traces ``jit(vmap(steps))``),
+* a **prefetch ring**: a background thread keeps ``prefetch_queue_depth``
+  host batches ready, overlapping host work with the device.
+
+Construction-time blueprint checking is kept 1:1
+(``check_and_get_output_data_structure``). Randomness of device steps comes
+from a ``torch.Generator`` seeded from ``(seed, batch_idx)`` — deterministic
+for a batch regardless of prefetch timing, identical on the CPU and on the
+card, and unrelated to the JAX package's threefry bits.
+
+Not ported yet (ROADMAP.md): mesh sharding, data echoing,
+``get_state``/``set_state``, ``device_program_text``,
+``export_device_program``, ``start_trace``, process workers.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from .dtypes import DType
+from .inputs.base import CallableBase, IterableBase, SampleInfo
+from .processing_steps.pipeline_step_base import BatchLevelStepBase, PipelineStepBase
+from .random_context import DeviceRandomContext, HostRandomContext
+from .sample_data_group import SampleDataGroup
+
+# fields up to this size ride the packed transfer (one field of bench.py's
+# batch, 8 frames of 372x1024x3, is 9 MB)
+_PACK_FIELD_MAX_BYTES = 32 << 20
+
+
+def _split_steps(steps: Sequence[PipelineStepBase]):
+    """Partition steps into the host prefix and the device suffix."""
+    host_steps: List[PipelineStepBase] = []
+    device_steps: List[PipelineStepBase] = []
+    in_device = False
+    for s in steps:
+        if s.placement == "device" or (in_device and s.placement == "any"):
+            in_device = True
+            device_steps.append(s)
+        elif not in_device:
+            host_steps.append(s)
+        else:
+            raise ValueError(
+                f"Host-only step {type(s).__name__} cannot run after the "
+                "host/device boundary (a device-placed step precedes it)."
+            )
+    return host_steps, device_steps
+
+
+class _F32MatmulScope:
+    """Float32 matrix products in full precision (TF32 off) for the device
+    stage; the caller's settings are restored afterwards."""
+
+    def __enter__(self):
+        self._tf32 = torch.backends.cuda.matmul.allow_tf32
+        self._prec = torch.get_float32_matmul_precision()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32 = self._tf32
+        torch.set_float32_matmul_precision(self._prec)
+
+
+class PipelineDefinition:
+    """Composes an input source and processing steps into an input pipeline.
+
+    Parity with ``accvlab_tpu.pipeline.PipelineDefinition``; the DALI
+    pass-through-copy arguments are accepted and ignored (device steps never
+    write into their inputs in place).
+    """
+
+    def __init__(
+        self,
+        data_loading_callable_iterable: Union[CallableBase, IterableBase],
+        preprocess_functors: Optional[Sequence[Optional[PipelineStepBase]]] = None,
+        check_data_format: bool = True,
+        use_parallel_external_source: bool = True,
+        prefetch_queue_depth: int = 2,
+        print_sample_data_group_format: bool = False,
+        copy_external_source_passthrough_outputs: Optional[bool] = None,
+        passthrough_copy_field_names: Optional[Sequence] = None,
+        passthrough_copy_field_names_scope_paths: Optional[Sequence] = None,
+        passthrough_copy_branch_paths: Optional[Sequence] = None,
+    ):
+        self._input = data_loading_callable_iterable
+        self._steps = [s for s in (preprocess_functors or []) if s is not None]
+        self._check_data_format = check_data_format
+        self._use_parallel = use_parallel_external_source
+        self._prefetch_queue_depth = prefetch_queue_depth
+        self._print_format = print_sample_data_group_format
+        if copy_external_source_passthrough_outputs:
+            warnings.warn(
+                "copy_external_source_passthrough_outputs has no effect: device "
+                "steps never write into their inputs in place."
+            )
+
+    @property
+    def input_data_structure(self) -> SampleDataGroup:
+        """Input format blueprint (from the data-loading functor)."""
+        return self._input.used_sample_data_structure
+
+    def check_and_get_output_data_structure(self) -> SampleDataGroup:
+        """Infer the output format by folding every step's format check in
+        the executor's order: host per-sample steps, host batch-level steps,
+        then the device steps."""
+        host_steps, device_steps = _split_steps(self._steps)
+        ordered = (
+            [s for s in host_steps if not s.is_batch_level]
+            + [s for s in host_steps if s.is_batch_level]
+            + list(device_steps)
+        )
+        blueprint = self.input_data_structure
+        if self._print_format:
+            print("### Input format:\n" + str(blueprint))
+        for step in ordered:
+            blueprint = step.check_input_data_format_and_set_output_data_format(blueprint)
+            if self._print_format:
+                print(f"### After {type(step).__name__}:\n" + str(blueprint))
+        return blueprint
+
+    def get_pipeline(
+        self,
+        batch_size: int,
+        num_threads: int = 4,
+        device=None,
+        seed: int = 0,
+        prefetch_queue_depth: Optional[int] = None,
+    ) -> "TorchPipeline":
+        """Build the executable pipeline. ``device`` defaults to the CUDA
+        device (raises without a card); ``device="cpu"`` runs every step's
+        plain PyTorch version on the CPU."""
+        return TorchPipeline(
+            self,
+            batch_size=batch_size,
+            num_threads=num_threads,
+            device=device,
+            seed=seed,
+            prefetch_queue_depth=(
+                self._prefetch_queue_depth if prefetch_queue_depth is None else prefetch_queue_depth
+            ),
+            parallel=self._use_parallel,
+            check_data_format=self._check_data_format,
+        )
+
+
+class TorchPipeline:
+    """Executable input pipeline with prefetching. Yields name-keyed batches.
+
+    Iteration protocol as in the JAX package: ``__next__`` returns
+    ``[{flat_name: batched_tensor}]``, raises ``StopIteration`` at epoch end;
+    ``reset()`` starts the next epoch.
+    """
+
+    def __init__(
+        self,
+        definition: PipelineDefinition,
+        batch_size: int,
+        num_threads: int,
+        device,
+        seed: int,
+        prefetch_queue_depth: int,
+        parallel: bool,
+        check_data_format: bool,
+    ):
+        self._device = resolve_device(device)
+        if self._device.type == "cuda" and self._device.index is None:
+            self._device = torch.device("cuda", torch.cuda.current_device())
+        self._num_threads = num_threads
+        self._definition = definition
+        self._batch_size = batch_size
+        self._seed = seed
+        self._depth = max(1, prefetch_queue_depth)
+        self._parallel = parallel
+        self._check = check_data_format
+
+        self._host_steps, self._device_steps = _split_steps(definition._steps)
+
+        # blueprint inference (construction time)
+        self._input_blueprint = definition.input_data_structure
+        bp = self._input_blueprint
+        for s in self._host_steps:
+            if not s.is_batch_level:
+                bp = s.check_input_data_format_and_set_output_data_format(bp)
+        self._per_sample_out_blueprint = bp
+        for s in self._host_steps:
+            if s.is_batch_level:
+                bp = s.check_input_data_format_and_set_output_data_format(bp)
+        self._host_out_blueprint = bp
+        for s in self._device_steps:
+            bp = s.check_input_data_format_and_set_output_data_format(bp)
+        self._output_blueprint = bp
+        self._output_names = bp.field_names_flat
+        self._host_out_types = self._host_out_blueprint.field_types_flat
+
+        self._pool = (
+            ThreadPoolExecutor(max_workers=num_threads, thread_name_prefix="accvlab-host")
+            if parallel
+            else None
+        )
+        self._epoch = 0
+        self._iteration = 0
+        self._global_batch = 0
+
+        self._queue: "queue.Queue" = queue.Queue(maxsize=self._depth)
+        self._producer: Optional[threading.Thread] = None
+        self._producer_stop = threading.Event()
+        self._exhausted = False
+
+        # observability counters (see stats()); written by one thread each
+        self._stat_produced = 0
+        self._stat_consumed = 0
+        self._stat_producer_busy_s = 0.0
+        self._stat_producer_blocked_s = 0.0
+        self._stat_consumer_wait_s = 0.0
+        self._stat_device_stage_s = 0.0
+        self._stat_transfer_bytes = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    # ------------------------------------------------------------------ #
+    # Host stage                                                         #
+    # ------------------------------------------------------------------ #
+
+    _EPOCH_END = object()
+
+    def _load_sample(self, idx_in_batch: int):
+        info = SampleInfo(
+            idx_in_epoch=self._iteration * self._batch_size + idx_in_batch,
+            idx_in_batch=idx_in_batch,
+            iteration=self._iteration,
+            epoch_idx=self._epoch,
+        )
+        try:
+            return self._definition._input(info)
+        except StopIteration:
+            # PEP 479: StopIteration cannot cross executor.map generators
+            return self._EPOCH_END
+
+    def _run_host_steps(self, flat: tuple, idx_in_batch: int) -> SampleDataGroup:
+        sdg = self._input_blueprint.get_empty_like_self()
+        sdg.set_data(list(flat))
+        if self._host_steps:
+            rng = HostRandomContext(
+                np.random.default_rng((self._seed, self._epoch, self._iteration, idx_in_batch))
+            )
+            for step in self._host_steps:
+                if step.is_batch_level:
+                    continue  # applied after the per-sample phase
+                step.set_random_context(rng)
+                sdg = step(sdg) if self._check else step._process(sdg)
+        return sdg
+
+    def _produce_host_batch(self):
+        """Run input + host steps for one batch. Returns
+        ``(batch_idx, stacked numpy fields)`` or raises StopIteration."""
+        if isinstance(self._definition._input, CallableBase):
+            if self._pool is not None:
+                def load_and_process(i):
+                    flat = self._load_sample(i)
+                    if flat is self._EPOCH_END:
+                        return self._EPOCH_END
+                    return self._run_host_steps(flat, i)
+
+                samples = list(self._pool.map(load_and_process, range(self._batch_size)))
+            else:
+                samples = []
+                for i in range(self._batch_size):
+                    flat = self._load_sample(i)
+                    samples.append(
+                        flat if flat is self._EPOCH_END else self._run_host_steps(flat, i)
+                    )
+            if any(s is self._EPOCH_END for s in samples):
+                raise StopIteration  # partial batches are dropped (DALI semantics)
+        else:
+            per_field = next(self._definition._input)  # may raise StopIteration
+            batch_size = len(per_field[0])
+            flats = [tuple(field[i] for field in per_field) for i in range(batch_size)]
+            if self._pool is not None:
+                samples = list(
+                    self._pool.map(lambda a: self._run_host_steps(*a),
+                                   [(f, i) for i, f in enumerate(flats)])
+                )
+            else:
+                samples = [self._run_host_steps(f, i) for i, f in enumerate(flats)]
+
+        for step in self._host_steps:
+            if step.is_batch_level:
+                assert isinstance(step, BatchLevelStepBase)
+                samples = step.process_batch_checked(samples, self._check)
+
+        self._iteration += 1
+        self._global_batch += 1
+        return self._global_batch - 1, self._stack_samples(samples)
+
+    def _stack_samples(self, samples: List[SampleDataGroup]):
+        names = self._host_out_blueprint.field_names_flat
+        types = self._host_out_types
+        per_sample_flat = [s.get_data() for s in samples]
+        batched = []
+        for fi, name in enumerate(names):
+            vals = [np.asarray(ps[fi]) for ps in per_sample_flat]
+            if types[fi] == DType.UINT8:
+                # strings flatten as UINT8; pad 1-D uint8 fields of unequal
+                # length with NULs
+                if any(v.ndim == 1 and v.dtype == np.uint8 for v in vals):
+                    max_len = max(v.shape[0] if v.ndim == 1 else -1 for v in vals)
+                    if any(v.ndim == 1 and v.shape[0] != max_len for v in vals):
+                        vals = [
+                            np.pad(v, (0, max_len - v.shape[0])) if v.ndim == 1 else v
+                            for v in vals
+                        ]
+            shapes = {v.shape for v in vals}
+            if len(shapes) > 1:
+                raise ValueError(
+                    f"Field '{name}' has non-uniform per-sample shapes {shapes} at "
+                    "the host->device boundary. Add a padding step before the "
+                    "first device-placed step."
+                )
+            batched.append(np.stack(vals, axis=0))
+        return tuple(batched)
+
+    # ------------------------------------------------------------------ #
+    # Transfer + device stage                                            #
+    # ------------------------------------------------------------------ #
+
+    def _transfer(self, host_batch: tuple) -> tuple:
+        """Host->device placement: one packed transfer (hostcopy engine).
+
+        Every field of up to 32 MiB rides a packed chunk, merged across
+        dtypes into raw-byte chunks. A failing transfer raises; there is no
+        quiet fallback.
+        """
+        from ..hostcopy import start_copy
+
+        self._stat_transfer_bytes = sum(a.nbytes for a in host_batch)
+        handle = start_copy(
+            list(host_batch), device=self._device, use_background_thread=False,
+            pack_candidate_max_bytes=_PACK_FIELD_MAX_BYTES, merge_dtype_chunks=True,
+        )
+        return tuple(handle.get())
+
+    def run_device_stage(self, leaves: Sequence[torch.Tensor], batch_idx: int) -> tuple:
+        """The device steps on one transferred batch (flat leaves in the
+        host-stage output order). Randomness is seeded from
+        ``(seed, batch_idx)``, so the same leaves and index give the same
+        outputs. Returns the flat output leaves."""
+        if not self._device_steps:
+            return tuple(leaves)
+        sdg = self._host_out_blueprint.get_empty_like_self()
+        sdg.set_data(list(leaves))
+        ctx = DeviceRandomContext((self._seed, batch_idx), device=self._device)
+        with _F32MatmulScope():
+            for step in self._device_steps:
+                step.set_random_context(ctx)
+                sdg = step(sdg) if self._check else step._process(sdg)
+        return tuple(sdg.get_data())
+
+    def _run_device_stage(self, host_batch: tuple, batch_idx: int):
+        return self.run_device_stage(self._transfer(host_batch), batch_idx)
+
+    # ------------------------------------------------------------------ #
+    # Prefetching iterator protocol                                      #
+    # ------------------------------------------------------------------ #
+
+    _END = object()
+
+    def _producer_loop(self):
+        # The producer performs ONLY host-stage work; transfer and device
+        # dispatch happen on the consumer thread (__next__), which keeps all
+        # CUDA calls on one thread. Device work is asynchronous, so host
+        # production of batch N+1 overlaps device compute of batch N.
+        while not self._producer_stop.is_set():
+            t0 = time.monotonic()
+            try:
+                item = self._produce_host_batch()
+            except StopIteration:
+                self._queue.put(self._END)
+                return
+            except Exception as e:  # propagate: the consumer must never block forever
+                self._queue.put(e)
+                return
+            t1 = time.monotonic()
+            self._queue.put(item)
+            t2 = time.monotonic()
+            self._stat_producer_busy_s += t1 - t0
+            self._stat_producer_blocked_s += t2 - t1
+            self._stat_produced += 1
+
+    def _ensure_producer(self):
+        if self._producer is None and not self._exhausted:
+            self._producer_stop.clear()
+            self._producer = threading.Thread(
+                target=self._producer_loop, daemon=True, name="accvlab-prefetch"
+            )
+            self._producer.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._exhausted:
+            raise StopIteration
+        self._ensure_producer()
+        t_wait0 = time.monotonic()
+        while True:
+            try:
+                item = self._queue.get(timeout=5.0)
+                break
+            except queue.Empty:
+                if self._producer is None or not self._producer.is_alive():
+                    self._exhausted = True
+                    raise RuntimeError(
+                        "pipeline producer thread died without delivering a batch or an error"
+                    )
+        if item is self._END:
+            self._exhausted = True
+            raise StopIteration
+        if isinstance(item, Exception):
+            self._exhausted = True
+            raise item
+        t_dev0 = time.monotonic()
+        self._stat_consumer_wait_s += t_dev0 - t_wait0
+        batch_idx, host_batch = item
+        try:
+            out = self._run_device_stage(host_batch, batch_idx)
+        except Exception:
+            self._exhausted = True
+            raise
+        self._stat_device_stage_s += time.monotonic() - t_dev0
+        self._stat_consumed += 1
+        return [dict(zip(self._output_names, out))]
+
+    def run(self):
+        """Fetch one batch as a name-keyed dict (convenience around __next__)."""
+        return self.__next__()[0]
+
+    def _halt_producer(self):
+        """Stop + join the producer thread and discard prefetched batches."""
+        self._producer_stop.set()
+        t = self._producer
+        while t is not None and t.is_alive():
+            try:
+                while True:
+                    self._queue.get_nowait()
+            except queue.Empty:
+                pass
+            t.join(timeout=0.25)
+        self._queue = queue.Queue(maxsize=self._depth)
+        self._producer = None
+
+    def reset(self):
+        """Start the next epoch (parity with the DALI iterator reset)."""
+        self._halt_producer()
+        if self._exhausted or self._iteration > 0:
+            self._epoch += 1
+        self._iteration = 0
+        self._exhausted = False
+
+    @property
+    def length(self) -> Optional[int]:
+        """Batches per epoch when the input advertises it, else ``None``."""
+        n = getattr(self._definition._input, "length", None)
+        return None if n is None else int(n)
+
+    def stats(self) -> dict:
+        """Live throughput/occupancy counters (same keys as the JAX
+        executor's, without ``program_cache``): ``produced``/``consumed``,
+        ``producer_busy_s``, ``producer_blocked_s``, ``consumer_wait_s``,
+        ``device_stage_s`` (transfer + enqueue of the device steps; device
+        work is asynchronous), ``queue_depth``/``queue_size``,
+        ``bytes_per_batch`` and ``input_bound_frac``."""
+        wait = self._stat_consumer_wait_s
+        dev = self._stat_device_stage_s
+        denom = wait + dev
+        return {
+            "produced": self._stat_produced,
+            "consumed": self._stat_consumed,
+            "producer_busy_s": self._stat_producer_busy_s,
+            "producer_blocked_s": self._stat_producer_blocked_s,
+            "consumer_wait_s": wait,
+            "device_stage_s": dev,
+            "queue_depth": self._depth,
+            "queue_size": self._queue.qsize(),
+            "bytes_per_batch": self._stat_transfer_bytes,
+            "input_bound_frac": (wait / denom) if denom > 0.0 else 0.0,
+        }
+
+    def stop(self):
+        """Shut down the producer thread and worker pool."""
+        self._halt_producer()
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+
+    @property
+    def output_blueprint(self) -> SampleDataGroup:
+        return self._output_blueprint.get_empty_like_self()
+
+    @property
+    def output_names(self):
+        return self._output_names

@@ -1,0 +1,144 @@
+"""The CUDA rasterizer (``accvlab_tpu_torch/heatmap/csrc/draw_heatmap.cu``)
+against its plain PyTorch version and the committed goldens, on a card.
+
+Every test here needs an NVIDIA card and skips without one (the kernel has
+no CPU form). No JAX is imported, so the file runs on a card machine without
+it:  python -m pytest tests/test_torch_kernels_cuda.py -q
+
+Tolerances: bitwise for ``exact=True`` (the pinned exp); rtol 1e-6 for the
+fast exp (``expf`` in the kernel against ``torch.exp``).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from accvlab_tpu_torch.heatmap import draw_gaussians, draw_heatmap, draw_heatmap_batched
+from accvlab_tpu_torch.ragged import RaggedBatch
+
+GOLDENS = os.path.join(os.path.dirname(__file__), "data", "goldens", "heatmap_goldens.npz")
+BATCHED_CASES = ["batched_ref_shape", "batched_large_radii", "batched_factor3_k05"]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU form)")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def goldens():
+    return np.load(GOLDENS)
+
+
+def group(goldens, name):
+    prefix = name + "/"
+    return {k[len(prefix):]: goldens[k] for k in goldens.files if k.startswith(prefix)}
+
+
+def t(x, device):
+    return torch.as_tensor(np.asarray(x)).to(device)
+
+
+def assert_bitwise(got, want):
+    got = got.cpu().numpy().astype(np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    same = got.view(np.int32) == want.view(np.int32)
+    assert same.all(), f"{(~same).sum()} / {same.size} pixels differ"
+
+
+def run_golden(g, case, device, implementation, exact):
+    kw = dict(diameter_to_sigma_factor=float(g["factor"]), k_scale=float(g["k_scale"]),
+              implementation=implementation, exact=exact)
+    hm = torch.zeros(g["heatmap"].shape, device=device)
+    if case == "flat":
+        return draw_heatmap(hm, t(g["centers"], device), t(g["radii"], device),
+                            t(g["idxes"], device), **kw)
+    sizes = t(g["sizes"], device)
+    labels = (RaggedBatch(t(g["labels"], device), sample_sizes=sizes)
+              if case == "classwise" else None)
+    return draw_heatmap_batched(hm, RaggedBatch(t(g["centers"], device), sample_sizes=sizes),
+                                RaggedBatch(t(g["radii"], device), sample_sizes=sizes),
+                                labels=labels, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BATCHED_CASES + ["classwise", "flat"])
+@pytest.mark.parametrize("exact", [True, False])
+def test_kernel_vs_plain_and_goldens(goldens, cuda, case, exact):
+    g = group(goldens, case)
+    got = run_golden(g, case, cuda, "kernel", exact)
+    plain = run_golden(g, case, cuda, "torch", exact)
+    torch.cuda.synchronize()
+    if exact:
+        assert_bitwise(got, plain.cpu().numpy())
+        assert_bitwise(got, g["heatmap"])
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(), rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [True, False])
+def test_gaussians_kernel_vs_plain(cuda, exact):
+    rng = np.random.default_rng(7)
+    b, c, h, w, n = 8, 10, 64, 176, 32
+    active = t(rng.random((b, n)) < 0.9, cuda)
+    ids = t(rng.integers(-1, c + 1, (b, n)).astype(np.int32), cuda)
+    centers = t(np.stack([rng.integers(0, w, (b, n)), rng.integers(0, h, (b, n))], -1)
+                .astype(np.int32), cuda)
+    radii = t(rng.uniform(0.5, 10.0, (b, n)).astype(np.float32), cuda)
+    hm = torch.zeros(b, c, h, w, device=cuda)
+    args = (hm, active, ids, centers, radii, [1.0] * c, 1.0 / 3.0)
+    got = draw_gaussians(*args, implementation="kernel", exact=exact)
+    plain = draw_gaussians(*args, implementation="torch", exact=exact)
+    torch.cuda.synchronize()
+    if exact:
+        assert_bitwise(got, plain.cpu().numpy())
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(), rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_kernel_mask_out_of_range_and_noncontiguous(cuda):
+    """Device-resident bad labels draw nothing (never read back), and the
+    wrapper takes non-contiguous inputs."""
+    hm = torch.zeros(2, 3, 16, 20, device=cuda)
+    centers = t([[[4, 4], [9, 9]], [[3, 5], [12, 8]]], cuda).transpose(0, 1).transpose(0, 1)
+    radii = t([[2, 3], [1, 2]], cuda)
+    sizes = t([2, 2], cuda)
+    labels = t([[0, 7], [-3, 2]], cuda)
+    args = (hm, RaggedBatch(centers, sample_sizes=sizes), RaggedBatch(radii, sample_sizes=sizes))
+    got = draw_heatmap_batched(*args, labels=RaggedBatch(labels, sample_sizes=sizes),
+                               implementation="kernel")
+    plain = draw_heatmap_batched(*args, labels=RaggedBatch(labels, sample_sizes=sizes),
+                                 implementation="torch")
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), plain.cpu().numpy())
+    assert float(got[1, :2].max()) == 0.0 and float(got[0, 1:].max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_launch_counter_counts_real_launches_only(cuda):
+    """An entry point counts one launch under its own name; an empty map
+    launches nothing and counts nothing; direct launches count as "bare"."""
+    from accvlab_tpu_torch.heatmap import LAUNCHES, _kernel, reset_launch_counts
+
+    sizes = t([1], cuda)
+    centers = RaggedBatch(t([[[3, 4]]], cuda), sample_sizes=sizes)
+    radii = RaggedBatch(t([[2]], cuda), sample_sizes=sizes)
+    reset_launch_counts()
+    draw_heatmap_batched(torch.zeros(1, 8, 8, device=cuda), centers, radii,
+                         implementation="kernel")
+    draw_heatmap_batched(torch.zeros(1, 0, 8, device=cuda), centers, radii,
+                         implementation="kernel")
+    f = torch.zeros(1, 1, device=cuda)
+    _kernel.launch("bare", torch.zeros(1, 1, 4, 4, device=cuda), f, f, f, f, None, None,
+                   1.0, False, True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["draw_heatmap_batched"] == 1
+    assert LAUNCHES["bare"] == 1
+    assert sum(LAUNCHES.values()) == 2
