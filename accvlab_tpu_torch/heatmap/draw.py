@@ -2,8 +2,10 @@
 
 PyTorch counterpart of ``accvlab_tpu/heatmap/draw.py``. The two TPU kernels
 there (``_batched_kernel`` and ``_tiled_kernel``) become one hand-written
-CUDA rasterizer (``csrc/draw_heatmap.cu``, bound in :mod:`._kernel`); next to
-it sits a plain PyTorch version with the same arithmetic.
+CUDA rasterizer (``csrc/draw_heatmap.cu``, bound in :mod:`._kernel`), which
+takes the raw centers, radii and counts and prepares the targets itself; next
+to it sits a plain PyTorch version with the same arithmetic
+(:func:`_prep_target_params` and :func:`raster_plain`).
 
 Math (``draw_heatmap_cuda_kernel.cuh:36-48`` of the reference):
 
@@ -80,12 +82,13 @@ def _gauss_inv_var(radii_f32: torch.Tensor, factor: float) -> torch.Tensor:
 
 
 def _prep_target_params(centers_t, radii_t, nums, factor):
-    """(B, T, 2) centers / (B, T) radii / (B,) counts -> f32 (B, T) xs, ys,
-    masked radii (invalid -> -1, in-box never true) and 1/var."""
-    t = radii_t.shape[1]
-    valid = torch.arange(t, device=radii_t.device)[None, :] < nums[:, None]
+    """(B, T, 2) centers / (B, T) radii / (B,) counts (None: all valid) -> f32
+    (B, T) xs, ys, masked radii (invalid -> -1, in-box never true) and 1/var."""
     radii_f = radii_t.to(torch.float32)
-    rr = torch.where(valid, radii_f, torch.full_like(radii_f, -1.0))
+    rr = radii_f
+    if nums is not None:
+        valid = torch.arange(radii_t.shape[1], device=radii_t.device)[None, :] < nums[:, None]
+        rr = torch.where(valid, radii_f, torch.full_like(radii_f, -1.0))
     iv = _gauss_inv_var(radii_f, factor)
     xs = centers_t[:, :, 0].to(torch.float32)
     ys = centers_t[:, :, 1].to(torch.float32)
@@ -97,8 +100,9 @@ def _exp(x, exact: bool):
 
 
 def raster_plain(hm, xs, ys, rr, iv, sel, kt, k_scale, exact, log_domain):
-    """Plain PyTorch version of the CUDA rasterizer (same arguments as
-    :func:`._kernel.launch`, same arithmetic): ``(B, C, H, W)`` out."""
+    """Plain PyTorch version of the CUDA rasterizer on prepared targets
+    (:func:`_prep_target_params`, or ``draw_gaussians.gaussian_params`` with
+    its per-target peaks ``kt``), same arithmetic: ``(B, C, H, W)`` out."""
     b, c, h, w = hm.shape
     dev = hm.device
     py = torch.arange(h, device=dev, dtype=torch.float32).view(1, 1, h, 1)
@@ -131,10 +135,15 @@ def raster_plain(hm, xs, ys, rr, iv, sel, kt, k_scale, exact, log_domain):
     return torch.maximum(hm, torch.stack(maps, dim=1))
 
 
-def _rasterize(entry, hm, xs, ys, rr, iv, sel, kt, k_scale, exact, log_domain, kernel):
+def _rasterize(entry, kernel, hm, centers, radii, nums, sel, factor, k_scale, exact):
+    """``hm`` (B, C, H, W), ``centers`` (B, T, 2), ``radii`` (B, T), ``nums``
+    (B,) or None, ``sel`` (B, T) or None, on the kernel or its plain version."""
+    log_domain = float(k_scale) > 0
     if kernel:
-        return _kernel.launch(entry, hm, xs, ys, rr, iv, sel, kt, k_scale, exact, log_domain)
-    return raster_plain(hm, xs, ys, rr, iv, sel, kt, k_scale, exact, log_domain)
+        return _kernel.launch_draw(entry, hm, centers.contiguous(), radii.contiguous(), nums,
+                                   sel, factor, k_scale, exact, log_domain)
+    xs, ys, rr, iv = _prep_target_params(centers, radii, nums, factor)
+    return raster_plain(hm, xs, ys, rr, iv, sel, None, k_scale, exact, log_domain)
 
 
 def _as_f32_map(heatmap, device) -> torch.Tensor:
@@ -186,16 +195,14 @@ def draw_heatmap(
     centers = _as_int(centers, dev).reshape(-1, 2)
     radii = _as_int(radii, dev).reshape(-1)
     idxes = _as_int(idx_raw, dev).reshape(-1)
-    t = centers.shape[0]
-    if t == 0:  # no targets -> nothing to draw
+    if centers.shape[0] == 0:  # no targets -> nothing to draw
         return hm
-    nums = torch.full((1,), t, dtype=torch.int32, device=dev)
-    xs, ys, rr, iv = _prep_target_params(centers[None], radii[None], nums, diameter_to_sigma_factor)
-    # the flat format is the classwise rasterizer with one mega-sample: maps
-    # act as classes, every target selects its map via heatmap_idxes
+    # the flat format is the classwise rasterizer with one mega-sample whose
+    # targets are all valid: maps act as classes, every target selects its
+    # map via heatmap_idxes
     out = _rasterize(
-        "draw_heatmap", hm[None], xs, ys, rr, iv, idxes[None].contiguous(), None,
-        k_scale, exact, float(k_scale) > 0, kernel,
+        "draw_heatmap", kernel, hm[None], centers[None], radii[None], None,
+        idxes[None].contiguous(), diameter_to_sigma_factor, k_scale, exact,
     )
     return out[0]
 
@@ -234,17 +241,15 @@ def draw_heatmap_batched(
     assert centers_t.shape[1] == radii_t.shape[1], (
         "centers and radii must have the same maximum number of objects"
     )
-    nums = _as_int(centers.sample_sizes, dev)
+    nums = _as_int(centers.sample_sizes, dev).contiguous()
     t = radii_t.shape[1]
-    log_domain = float(k_scale) > 0
 
     if labels is None:
         if t == 0:
             return hm
-        xs, ys, rr, iv = _prep_target_params(centers_t, radii_t, nums, diameter_to_sigma_factor)
         out = _rasterize(
-            "draw_heatmap_batched", hm[:, None], xs, ys, rr, iv, None, None,
-            k_scale, exact, log_domain, kernel,
+            "draw_heatmap_batched", kernel, hm[:, None], centers_t, radii_t, nums, None,
+            diameter_to_sigma_factor, k_scale, exact,
         )
         return out[:, 0]
 
@@ -264,8 +269,7 @@ def draw_heatmap_batched(
         _validate_ids_eager(labels_raw, num_classes, "labels", live_mask=live)
     if t == 0:
         return hm
-    xs, ys, rr, iv = _prep_target_params(centers_t, radii_t, nums, diameter_to_sigma_factor)
     return _rasterize(
-        "draw_heatmap_batched_classwise", hm, xs, ys, rr, iv, labels_t.contiguous(), None,
-        k_scale, exact, log_domain, kernel,
+        "draw_heatmap_batched_classwise", kernel, hm, centers_t, radii_t, nums,
+        labels_t.contiguous(), diameter_to_sigma_factor, k_scale, exact,
     )

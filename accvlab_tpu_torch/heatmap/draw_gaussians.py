@@ -1,8 +1,9 @@
 """Gaussian splatting with float radii (pipeline variant), batched.
 
 PyTorch counterpart of ``accvlab_tpu/heatmap/draw_gaussians.py``; runs on the
-same CUDA rasterizer as :mod:`.draw` (``csrc/draw_heatmap.cu``) with the
-pipeline's own rule (``draw_gaussians.py:61-89``):
+same CUDA rasterizer as :mod:`.draw` (``csrc/draw_heatmap.cu``, which
+prepares the targets from the raw inputs itself) with the pipeline's own rule
+(``draw_gaussians.py:61-89``):
 
 * drawing box per target: ``|dy| <= ceil(r)``, ``|dx| <= ceil(r)``;
 * ``sigma = radius * radius_to_sigma_factor``;
@@ -14,7 +15,8 @@ pipeline's own rule (``draw_gaussians.py:61-89``):
 Where the JAX function draws one sample, this one takes any number of
 leading batch dimensions: ``active`` is ``(*batch, T)`` and ``heatmap`` is
 ``(*batch, C, H, W)`` (or ``(*batch, H, W)``). All samples go to the card in
-one kernel launch.
+one kernel launch; the per-class peaks travel in the launch's arguments, so
+a call on CUDA tensors makes no copy between host and card.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .draw import _as_f32_map, _rasterize, _use_kernel
+from . import _kernel
+from .draw import _as_f32_map, _use_kernel, raster_plain
 
 
 def draw_gaussians(
@@ -48,7 +51,8 @@ def draw_gaussians(
         slice_ids: ``(*batch, T)`` int class/channel per target.
         centers: ``(*batch, T, 2)`` int — x, y full-pixel centers.
         radii: ``(*batch, T)`` float32.
-        k_for_classes: per-class peak scale.
+        k_for_classes: per-class peak scale (a host sequence; the kernel
+            takes at most ``_kernel.MAX_CLASSES`` classes).
         radius_to_sigma_factor: ``sigma = radius * factor``.
         implementation: ``"auto"`` | ``"kernel"`` | ``"torch"`` (see :mod:`.draw`).
         exact: ``True`` uses the bit-reproducible exp (the JAX function has
@@ -72,15 +76,18 @@ def draw_gaussians(
     c, h, w = hm.shape[-3:]
     b = int(math.prod(batch))
     hm4 = hm.reshape(b, c, h, w)
+    targets = (active.reshape(b, t).contiguous(),
+               as_t(slice_ids, torch.int32).reshape(b, t).contiguous(),
+               as_t(centers, torch.int32).reshape(b, t, 2).contiguous(),
+               as_t(radii, torch.float32).reshape(b, t).contiguous())
     if t == 0:
         out = hm4
+    elif kernel:
+        out = _kernel.launch_gaussians("draw_gaussians", hm4, *targets, k_for_classes,
+                                       radius_to_sigma_factor, exact)
     else:
-        params = gaussian_params(
-            active.reshape(b, t), as_t(slice_ids, torch.int32).reshape(b, t),
-            as_t(centers, torch.int32).reshape(b, t, 2), as_t(radii, torch.float32).reshape(b, t),
-            k_for_classes, radius_to_sigma_factor, c,
-        )
-        out = _rasterize("draw_gaussians", hm4, *params, 1.0, exact, False, kernel)
+        params = gaussian_params(*targets, k_for_classes, radius_to_sigma_factor, c)
+        out = raster_plain(hm4, *params, 1.0, exact, False)
     out = out.reshape(*batch, c, h, w)
     return out.squeeze(-3) if squeeze else out
 

@@ -443,3 +443,115 @@ def test_exp_f32_twins_bitwise():
     a = np.random.default_rng(1).uniform(0.1, 50, 512).astype(np.float32)
     b = np.random.default_rng(2).uniform(0.1, 50, 512).astype(np.float32)
     assert_bitwise(trepro.div_f32(t(a), t(b)), jrepro.div_f32_np(a, b))
+
+
+# ---------------- the CUDA wrapper's own checks, on the CPU -------------- #
+
+
+def _gauss_inputs(b=2, c=3, h=8, w=12, n=4):
+    rng = np.random.default_rng(4)
+    return (torch.zeros(b, c, h, w), t(rng.random((b, n)) < 0.9),
+            t(rng.integers(0, c, (b, n)).astype(np.int32)),
+            t(np.stack([rng.integers(0, w, (b, n)), rng.integers(0, h, (b, n))], -1)
+              .astype(np.int32)), t(rng.uniform(0.5, 3.0, (b, n)).astype(np.float32)))
+
+
+def test_kernel_implementation_on_cpu_raises_for_every_entry_point():
+    """``implementation="kernel"`` demands the card: a CPU tensor raises and
+    never falls back to the plain version."""
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        draw_gaussians(*_gauss_inputs(), [1.0] * 3, 1.0 / 3.0, implementation="kernel")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        draw_heatmap(torch.zeros(2, 8, 12), t([[4, 4]]), t([1]), t([0]), implementation="kernel")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        draw_heatmap_batched(torch.zeros(1, 3, 8, 12), rb([[[4, 4]]], [1]), rb([[1]], [1]),
+                             labels=rb([[2]], [1]), implementation="kernel")
+
+
+def test_launch_checks_arguments_before_the_device():
+    """Type, shape and contiguity are checked first; well-formed CPU tensors
+    then raise because the kernel takes CUDA tensors only."""
+    from accvlab_tpu_torch.heatmap import LAUNCHES, _kernel
+
+    hm, active, ids, centers, radii = _gauss_inputs()
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        _kernel.launch_gaussians("bare", hm, active, ids, centers, radii, [1.0] * 3, 0.3, False)
+    with pytest.raises(ValueError, match="radii: expected a contiguous torch.float32"):
+        _kernel.launch_gaussians("bare", hm, active, ids, centers, radii.double(), [1.0] * 3,
+                                 0.3, False)
+    with pytest.raises(ValueError, match="active: expected"):
+        _kernel.launch_gaussians("bare", hm, active.int(), ids, centers, radii, [1.0] * 3, 0.3,
+                                 False)
+    with pytest.raises(ValueError, match="centers: expected"):
+        _kernel.launch_draw("bare", hm, centers.transpose(0, 1), ids, None, None, 6.0, 1.0,
+                            False, True)
+    with pytest.raises(ValueError, match="num_valid: expected"):
+        _kernel.launch_draw("bare", hm, centers, ids, t([1, 2, 3]).int(), None, 6.0, 1.0,
+                            False, True)
+    with pytest.raises(ValueError, match="sel: expected"):
+        _kernel.launch_draw("bare", hm, centers, ids, None, ids.long(), 6.0, 1.0, False, True)
+    with pytest.raises(ValueError, match="heatmap must be a float32"):
+        _kernel.launch_draw("bare", hm[0], centers, ids, None, None, 6.0, 1.0, False, True)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        _kernel.launch_draw("bare", hm, centers, ids, t([1, 4]).int(), ids, 6.0, 1.0, False, True)
+    assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("tile", [(8, 16), (8, 3, 1), (16, 32, 1), (8, 16, 3), (0, 32, 1)])
+def test_launch_rejects_bad_tiles(tile):
+    from accvlab_tpu_torch.heatmap import _kernel
+
+    hm, active, ids, centers, radii = _gauss_inputs()
+    with pytest.raises(ValueError, match="tile"):
+        _kernel.launch_gaussians("bare", hm, active, ids, centers, radii, [1.0] * 3, 0.3, False,
+                                 tile)
+
+
+def test_peak_table_cap_and_length():
+    """The per-class peaks go to the kernel by value: at most MAX_CLASSES
+    classes, at least one peak per class, extra peaks ignored."""
+    from accvlab_tpu_torch.heatmap import _kernel
+
+    k = _kernel.peak_table([1.0, 0.5, 2.0, 7.0], 3)
+    assert k.dtype == np.float32 and k.tolist() == [1.0, 0.5, 2.0]
+    assert _kernel.peak_table(np.float64(0.1) * np.ones(5), 5)[0] == np.float32(0.1)
+    with pytest.raises(ValueError, match="2 entries for 3 classes"):
+        _kernel.peak_table([1.0, 0.5], 3)
+    with pytest.raises(ValueError, match="at most 256 classes"):
+        _kernel.peak_table([1.0] * 300, _kernel.MAX_CLASSES + 1)
+
+
+def test_plain_draw_gaussians_takes_more_classes_than_the_kernel():
+    """The cap is the kernel's alone: the plain version draws 300 classes."""
+    b, c, h, w, n = 1, 300, 4, 6, 3
+    hm = torch.zeros(b, c, h, w)
+    out = draw_gaussians(hm, t(np.ones((b, n), bool)), t(np.array([[0, 150, 299]], np.int32)),
+                         t(np.array([[[1, 1], [2, 2], [5, 3]]], np.int32)),
+                         t(np.full((b, n), 1.5, np.float32)), [1.0] * c, 1.0 / 3.0)
+    assert [float(out[0, i].max()) for i in (0, 150, 299, 1)] == [1.0, 1.0, 1.0, 0.0]
+
+
+def test_flat_plain_with_all_targets_valid_matches_explicit_counts():
+    """The flat form passes no counts (every target valid); the plain
+    preparation gives the same targets as with an explicit full count."""
+    centers, radii = t([[[4, 4], [6, 2], [1, 7]]]).int(), t([[1, 2, 0]]).int()
+    full = tdraw._prep_target_params(centers, radii, t([3]).int(), 6.0)
+    none = tdraw._prep_target_params(centers, radii, None, 6.0)
+    for a, b in zip(full, none):
+        assert torch.equal(a, b)
+
+
+def test_tile_follows_the_grid_and_the_targets():
+    """Many targets per sample take 256-thread blocks (half the chunks to
+    cull); a grid under two blocks per SM takes the small tile; else TILE."""
+    from accvlab_tpu_torch.heatmap import _kernel
+
+    assert _kernel.choose_tile(480, 64, 176, 32, 132) == _kernel.TILE  # the main path
+    assert _kernel.choose_tile(48, 64, 176, 32, 132) == _kernel.TILE  # 576 blocks
+    assert _kernel.choose_tile(48, 20, 50, 50, 132) == _kernel.TILE_SMALL_GRID  # 96 blocks
+    assert _kernel.choose_tile(960, 20, 50, 50, 132) == _kernel.TILE
+    assert _kernel.choose_tile(48, 64, 176, 1536, 132) == _kernel.TILE_MANY_TARGETS
+    assert _kernel.choose_tile(1, 1, 1, 129, 132) == _kernel.TILE_MANY_TARGETS
+    for tile in (_kernel.TILE, _kernel.TILE_SMALL_GRID, _kernel.TILE_MANY_TARGETS):
+        assert tile[0] * tile[1] % 32 == 0 and tile[0] * tile[1] <= 256 and tile[2] in (1, 2, 4)

@@ -17,6 +17,7 @@ import torch
 
 from accvlab_tpu_torch.heatmap import draw_gaussians, draw_heatmap, draw_heatmap_batched
 from accvlab_tpu_torch.ragged import RaggedBatch
+from chip_smoke import EDGE_CASES, edge_case, matches_plain
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "data", "goldens", "heatmap_goldens.npz")
 BATCHED_CASES = ["batched_ref_shape", "batched_large_radii", "batched_factor3_k05"]
@@ -135,10 +136,68 @@ def test_launch_counter_counts_real_launches_only(cuda):
                          implementation="kernel")
     draw_heatmap_batched(torch.zeros(1, 0, 8, device=cuda), centers, radii,
                          implementation="kernel")
-    f = torch.zeros(1, 1, device=cuda)
-    _kernel.launch("bare", torch.zeros(1, 1, 4, 4, device=cuda), f, f, f, f, None, None,
-                   1.0, False, True)
+    i = torch.zeros(1, 1, dtype=torch.int32, device=cuda)
+    _kernel.launch_draw("bare", torch.zeros(1, 1, 4, 4, device=cuda), torch.zeros(
+        1, 1, 2, dtype=torch.int32, device=cuda), i, None, None, 6.0, 1.0, False, True)
     torch.cuda.synchronize()
     assert LAUNCHES["draw_heatmap_batched"] == 1
     assert LAUNCHES["bare"] == 1
     assert sum(LAUNCHES.values()) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+@pytest.mark.parametrize("exact", [True, False])
+def test_kernel_edge_cases_vs_plain(cuda, name, exact):
+    """The tiled kernel's cull at its edges (``chip_smoke.EDGE_CASES``): boxes
+    larger than the tile and the map, centres outside, reach -0.0 / NaN /
+    inf, widths 175 and 1, H = 1, 5,000 targets, one class only, bad ids on
+    the card, non-positive peaks."""
+    call = edge_case(name, cuda)
+    got, plain = call("kernel", exact), call("torch", exact)
+    torch.cuda.synchronize()
+    assert matches_plain(got, plain, exact), f"{int((got != plain).sum())} pixels differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(8, 4, 1), (8, 32, 1), (32, 8, 2), (64, 4, 4), (1, 32, 2),
+                                  (16, 8, 4)])
+def test_kernel_any_tile_vs_plain(cuda, tile):
+    """Every tile shape the launch takes gives the plain version's bits."""
+    from accvlab_tpu_torch.heatmap import _kernel
+
+    rng = np.random.default_rng(11)
+    b, c, h, w, n = 4, 3, 30, 90, 40
+    active = t(rng.random((b, n)) < 0.9, cuda)
+    ids = t(rng.integers(0, c, (b, n)).astype(np.int32), cuda)
+    centers = t(np.stack([rng.integers(-10, w + 10, (b, n)), rng.integers(-10, h + 10, (b, n))],
+                         -1).astype(np.int32), cuda)
+    radii = t(rng.uniform(0.5, 25.0, (b, n)).astype(np.float32), cuda)
+    hm = torch.zeros(b, c, h, w, device=cuda)
+    got = _kernel.launch_gaussians("bare", hm, active, ids, centers, radii, [1.0, 0.5, 2.0],
+                                   0.3, True, tile)
+    plain = draw_gaussians(hm, active, ids, centers, radii, [1.0, 0.5, 2.0], 0.3,
+                           implementation="torch", exact=True)
+    torch.cuda.synchronize()
+    assert_bitwise(got, plain.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_draw_gaussians_makes_no_blocking_copy(cuda):
+    """With every input on the card, draw_gaussians neither copies between
+    host and card nor waits for the card (the peaks travel by value)."""
+    rng = np.random.default_rng(3)
+    b, c, h, w, n = 6, 10, 64, 176, 32
+    args = (torch.zeros(b, c, h, w, device=cuda), t(rng.random((b, n)) < 0.9, cuda),
+            t(rng.integers(0, c, (b, n)).astype(np.int32), cuda),
+            t(np.stack([rng.integers(0, w, (b, n)), rng.integers(0, h, (b, n))], -1)
+              .astype(np.int32), cuda),
+            t(rng.uniform(0.5, 10.0, (b, n)).astype(np.float32), cuda), [1.0] * c, 1.0 / 3.0)
+    draw_gaussians(*args, implementation="kernel")  # builds and loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = draw_gaussians(*args, implementation="kernel")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert float(out.max()) == 1.0
