@@ -7,13 +7,20 @@ wire modules wait for libjpeg on the card machine, ROADMAP.md): 6 cameras of
 device ``AffineTransformer`` -> ``PhotoMetricDistorter`` ->
 ``BoundingBoxToHeatmapConverter`` (the CUDA rasterizer) ->
 ``ImageMeanStdDevNormalizer``.
+
+``measure_input_idle`` is ``bench.py:272-361``: the share of a CenterNet
+training loop fed by that pipeline that the card waits for input.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+import time
+from typing import Dict, Optional, Tuple
 
+import torch
+
+from .models.centernet import CenterNetDetector, adam, init_params
 from .pipeline import PipelineDefinition
 from .pipeline.inputs import MultiCameraSyntheticProvider, ShuffledShardedInputCallable
 from .pipeline.processing_steps import (
@@ -25,8 +32,10 @@ from .pipeline.processing_steps import (
 
 def headline_steps(out_hw=(256, 704), heatmap_hw=(64, 176), num_classes: int = 10,
                    affine_prob: float = 0.5, photometric_prob: float = 0.5,
-                   heatmap_implementation: str = "auto"):
-    """The device steps of bench.py's pipeline, in order."""
+                   heatmap_implementation: str = "auto", hw_out_name: Optional[str] = None):
+    """The device steps of bench.py's pipeline, in order. ``hw_out_name``
+    also asks the heatmap converter for each box's (h, w) on the heatmap
+    grid under that name, as the training example's pipeline does."""
     p = photometric_prob
     return [
         AffineTransformer(
@@ -58,6 +67,7 @@ def headline_steps(out_hw=(256, 704), heatmap_hw=(64, 176), num_classes: int = 1
             is_active_opt_out_name="active",
             center_opt_out_name="center",
             center_offset_opt_out_name="offset",
+            height_width_bboxes_heatmap_opt_out_name=hw_out_name,
             implementation=heatmap_implementation,
         ),
         ImageMeanStdDevNormalizer("image", mean=[103.5, 116.3, 123.7], std_dev=[57.4, 57.1, 58.4]),
@@ -69,7 +79,7 @@ def build_pipeline(batch_size: int = 8, device=None, num_threads: Optional[int] 
                    out_hw=(256, 704), heatmap_hw=(64, 176), num_samples: int = 6400,
                    num_unique: int = 2, affine_prob: float = 0.5,
                    photometric_prob: float = 0.5, heatmap_implementation: str = "auto",
-                   seed: int = 0):
+                   seed: int = 0, hw_out_name: Optional[str] = None):
     """bench.py's pipeline on the port (``device`` defaults to the card)."""
     if num_threads is None:
         num_threads = max(2, os.cpu_count() or 4)
@@ -78,8 +88,80 @@ def build_pipeline(batch_size: int = 8, device=None, num_threads: Optional[int] 
     inp = ShuffledShardedInputCallable(provider, batch_size=batch_size, shuffle=True)
     steps = headline_steps(out_hw, heatmap_hw, affine_prob=affine_prob,
                            photometric_prob=photometric_prob,
-                           heatmap_implementation=heatmap_implementation)
+                           heatmap_implementation=heatmap_implementation,
+                           hw_out_name=hw_out_name)
     definition = PipelineDefinition(inp, steps, check_data_format=False,
                                     copy_external_source_passthrough_outputs=False)
     return definition.get_pipeline(batch_size=batch_size, num_threads=num_threads,
                                    device=device, seed=seed)
+
+
+def model_inputs(out: Dict[str, torch.Tensor], num_cams: int):
+    """Every camera's images ``(B * num_cams, H, W, 3)`` and heatmaps
+    ``(B * num_cams, Hf, Wf, C)`` of one pipeline batch, camera-major."""
+    images = torch.cat([out[f"cameras.[{c}].image"] for c in range(num_cams)], 0)
+    heat = torch.cat([out[f"cameras.[{c}].annotations.heatmap"] for c in range(num_cams)], 0)
+    return images, heat.permute(0, 2, 3, 1)
+
+
+def dense_focal_loss(outputs: Dict[str, torch.Tensor], heat: torch.Tensor) -> torch.Tensor:
+    """bench.py's loss of ``measure_input_idle`` (``bench.py:307-320``): the
+    penalty-reduced focal loss on the dense heatmap target, plus 0.01 times
+    the mean absolute offset and size outputs."""
+    pred = torch.sigmoid(outputs["heatmap"].float())
+    pos = heat >= 0.999
+    pos_loss = torch.where(pos, ((1 - pred) ** 2) * -torch.log(pred + 1e-6), 0.0)
+    neg_loss = torch.where(~pos, ((1 - heat) ** 4) * (pred**2) * -torch.log(1 - pred + 1e-6), 0.0)
+    n_pos = pos.sum().to(pred.dtype).clamp(min=1.0)
+    focal = (pos_loss.sum() + neg_loss.sum()) / n_pos
+    reg = outputs["offset"].abs().mean() + outputs["size"].abs().mean()
+    return focal + 0.01 * reg
+
+
+def dense_train_step(model: CenterNetDetector, opt: torch.optim.Optimizer, num_cams: int):
+    """``step(out)``: one step of ``measure_input_idle``'s training on a
+    pipeline batch ``out``; returns the loss as a device scalar."""
+
+    def step(out: Dict[str, torch.Tensor]) -> torch.Tensor:
+        images, heat = model_inputs(out, num_cams)
+        loss = dense_focal_loss(model(images), heat)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return step
+
+
+def measure_input_idle(pipe, num_cams: int, n_iters: int = 6, width: int = 64) -> dict:
+    """Share of a training loop's time that the card waits for input.
+
+    A CenterNet (10 classes, ``width``) trained with :func:`dense_focal_loss`
+    and Adam (lr 1e-3) on every camera of the pipeline's batches, on the
+    pipeline's device. After one step and a warm-up window, ``t_e2e`` is the
+    time per step over ``n_iters`` steps each fed a fresh batch by
+    ``pipe.run()`` (its prefetch ring running), and ``t_comp`` the same on
+    the first batch, cached. The card is synchronised once at the end of
+    each window. ``idle = max(0, (t_e2e - t_comp) / t_e2e)``; it counts the
+    pipeline's own device stage as idle, since that shares the card with
+    the step.
+
+    Returns ``{"t_e2e_s", "t_comp_s", "idle"}``.
+    """
+    model = CenterNetDetector(num_classes=10, width=width)
+    init_params(model, torch.Generator().manual_seed(0)).to(pipe.device)
+    step = dense_train_step(model, adam(model.parameters()), num_cams)
+    out0 = pipe.run()
+    step(out0).item()
+
+    def loop(use_pipe: bool) -> float:
+        t0 = time.perf_counter()
+        for _ in range(n_iters):
+            loss = step(pipe.run() if use_pipe else out0)
+        loss.item()  # one synchronisation, at the end of the window
+        return (time.perf_counter() - t0) / n_iters
+
+    loop(True)  # the prefetch ring to its steady state
+    t_e2e = loop(True)
+    t_comp = loop(False)
+    return {"t_e2e_s": t_e2e, "t_comp_s": t_comp, "idle": max(0.0, (t_e2e - t_comp) / t_e2e)}

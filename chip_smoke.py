@@ -25,8 +25,28 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              100 batches (frames/s per window and their median); outputs
              checked, one batch recomputed with the plain heatmap version
              and compared;
-5. the {"kernels": [...]} line, the nvidia-smi line, and last the result
+5. train_parity — a seeded CenterNet (width 64) on make_example_batch, on
+             the card and on the CPU (the port's plain path): loss, heads
+             and parameter gradients within the bf16 tolerances stated in
+             TRAIN_TOL; and the ragged gather's backward at the main path's
+             shapes with many duplicate indices, twice on the card: both
+             bitwise equal to each other and to the CPU's;
+6. train   — the training path at full width: build_train_pipeline (6
+             cameras x batch 8, heatmap 10x64x176) -> batch_to_train_inputs
+             of all cameras (48 images) -> make_train_step(CenterNetDetector(
+             10, width=64)): 20 steps on fresh batches (every loss finite),
+             30 steps on one cached batch (the loss falls below its first
+             value; device time per step with CUDA events, peak memory, conv
+             FLOPs per second as a share of the bf16 peak), then one step
+             under torch.cuda.set_sync_debug_mode("error");
+7. input_idle — bench_pipeline.measure_input_idle(pipe, 6, n_iters=50,
+             width=64) on bench.py's pipeline: t_e2e, t_comp, idle and the
+             pipeline's input_bound_frac;
+8. the {"kernels": [...]} line, the nvidia-smi line, and last the result
    line {"ok": true, "device": {...}}.
+
+The pipeline phases (main, train, input_idle) each count the rasterizer's
+launches from 0 and fail unless it ran once per pipeline batch.
 
 Exits non-zero without a result when torch.cuda.is_available() is false.
 Imports nothing of JAX.
@@ -55,6 +75,15 @@ N_TIMED = 50
 N_TIMED_PLAIN = 10
 MAIN_WINDOWS = 3
 MAIN_WINDOW_BATCHES = 100
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+TRAIN_FRESH_STEPS = 20
+TRAIN_CACHED_STEPS = 30
+IDLE_ITERS = 50
+# card against CPU, same weights and batch, both with bf16 convs: a bf16
+# rounding is 2^-8 of a value, and the two sides accumulate the convs in
+# different orders, so some roundings land one step apart and propagate.
+# Errors are relative to the largest magnitude of each tensor.
+TRAIN_TOL = {"loss": 2e-2, "heads": 3e-2, "grads": 1e-1, "grad_cosine": 0.99}
 GOLDENS = os.path.join("tests", "data", "goldens", "heatmap_goldens.npz")
 SOURCE = "accvlab_tpu_torch/heatmap/csrc/draw_heatmap.cu"
 
@@ -494,6 +523,220 @@ def main_phase(dev, card: str):
     return main_launches
 
 
+# --------------------------------------------------------------------- #
+# training path                                                         #
+# --------------------------------------------------------------------- #
+
+
+def gather_adjoint_inputs(seed: int = 0):
+    """The ragged gather of the main path's loss (48 feature maps of 64x176
+    with 2 channels, 32 slots per sample), its indices drawn from 8 pixels
+    so that most slots share one with another slot."""
+    rng = np.random.default_rng(seed)
+    b, n, t = 48, 64 * 176, 32
+    data = rng.normal(size=(b, n, 2)).astype(np.float32)
+    idx = rng.integers(0, 8, (b, t)).astype(np.int32)
+    sizes = rng.integers(t // 2, t + 1, b).astype(np.int32)
+    ct = rng.normal(size=(b, t, 2)).astype(np.float32)
+    return data, idx, sizes, ct
+
+
+def gather_adjoint(inputs, dev, ordered: bool = True) -> torch.Tensor:
+    """The gradient of sum(ct * gather(data)) with respect to data: through
+    the port's ragged gather, or (``ordered=False``) through plain
+    torch.gather autograd."""
+    from accvlab_tpu_torch.ragged import RaggedBatch, batched_indexing_access
+
+    data, idx, sizes, ct = (torch.from_numpy(a).to(dev) for a in inputs)
+    x = data.clone().requires_grad_(True)
+    if ordered:
+        out = batched_indexing_access(x, RaggedBatch(idx, sample_sizes=sizes)).tensor
+    else:
+        out = torch.gather(x, 1, idx.long()[:, :, None].expand(*idx.shape, 2))
+    out.backward(ct)
+    return x.grad
+
+
+def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return bool(torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32)))
+
+
+def rel_to_max(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def train_parity_phase(dev):
+    import copy
+
+    from accvlab_tpu_torch.models.centernet import (
+        CenterNetDetector, centernet_loss, init_params, make_example_batch)
+
+    cpu = torch.device("cpu")
+    model_cpu = init_params(CenterNetDetector(10, width=64), torch.Generator().manual_seed(0))
+    model_gpu = copy.deepcopy(model_cpu).to(dev)
+    res = {}
+    for name, model, d in (("cpu", model_cpu, cpu), ("gpu", model_gpu, dev)):
+        batch = make_example_batch(device=d)
+        heads = model(batch["images"])
+        loss = centernet_loss(heads, batch["targets"])["loss"]
+        loss.backward()
+        res[name] = (loss.detach(), heads, {n: p.grad for n, p in model.named_parameters()})
+    loss_err = abs(float(res["gpu"][0]) - float(res["cpu"][0])) / abs(float(res["cpu"][0]))
+    head_err = max(rel_to_max(res["gpu"][1][k], res["cpu"][1][k]) for k in res["cpu"][1])
+    grad_err, cosine = 0.0, 1.0
+    for n, g_cpu in res["cpu"][2].items():
+        g_gpu = res["gpu"][2][n].cpu()
+        grad_err = max(grad_err, rel_to_max(g_gpu, g_cpu))
+        cosine = min(cosine, float(torch.nn.functional.cosine_similarity(
+            g_gpu.double().flatten(), g_cpu.double().flatten(), dim=0)))
+    errors = {"loss": loss_err, "heads": head_err, "grads": grad_err, "grad_cosine": cosine}
+    for k, tol in TRAIN_TOL.items():
+        bad = errors[k] < tol if k == "grad_cosine" else errors[k] > tol
+        if bad:
+            fail(f"train_parity: {k} {errors[k]} against the CPU (tolerance {tol})")
+
+    inputs = gather_adjoint_inputs()
+    first, second = gather_adjoint(inputs, dev), gather_adjoint(inputs, dev)
+    on_cpu = gather_adjoint(inputs, cpu)
+    if not (bitwise_equal(first, second) and bitwise_equal(first, on_cpu)):
+        fail("train_parity: the ragged gather's backward is not the same bits run to run "
+             "and on the CPU")
+    plain = [gather_adjoint(inputs, dev, ordered=False) for _ in range(2)]
+    emit({"phase": "train_parity", "model": "CenterNetDetector(10, width=64), "
+          "make_example_batch(2, (64, 96))", "errors": errors, "tolerance": TRAIN_TOL,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "gather_adjoint_bitwise_run_to_run": True, "gather_adjoint_bitwise_vs_cpu": True,
+          "plain_torch_gather_adjoint_bitwise_run_to_run": bitwise_equal(*plain),
+          "plain_torch_gather_adjoint_bitwise_vs_cpu": bitwise_equal(plain[0], on_cpu)})
+
+
+def conv_flops(model, batch: int, hw) -> tuple:
+    """(forward, step) FLOPs of the model's convs on ``batch`` images of
+    ``hw``: 2 per multiply-add; the backward pass computes each conv's
+    weight gradient and, except for the first conv (whose input is the
+    images), its input gradient, each as many FLOPs as the forward conv.
+    GroupNorm, the losses and Adam are left out."""
+    h, w = hw
+    fwd, first = 0.0, None
+    for block in model.blocks:
+        weight, s = block.conv.weight, block.stride
+        h, w = -(-h // s), -(-w // s)  # 'SAME' keeps ceil(n / s)
+        flops = 2.0 * batch * h * w * weight[0].numel() * weight.shape[0]
+        first = flops if first is None else first
+        fwd += flops
+    for head in model.heads().values():
+        fwd += 2.0 * batch * h * w * head.weight[0].numel() * head.weight.shape[0]
+    return fwd, 3.0 * fwd - first
+
+
+def count_launches(fn):
+    """``fn()`` with the rasterizer's launch counts from 0; returns its
+    result and the draw_gaussians launches it made."""
+    from accvlab_tpu_torch.heatmap import LAUNCHES, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, LAUNCHES["draw_gaussians"]
+
+
+def train_phase(dev, card: str):
+    from accvlab_tpu_torch.models.centernet import CenterNetDetector, make_train_step
+    from accvlab_tpu_torch.train_centernet_e2e import batch_to_train_inputs, build_train_pipeline
+
+    batch, num_cams, cams = 8, 6, list(range(6))
+    pipe = build_train_pipeline(batch_size=batch, device=dev)
+    model = CenterNetDetector(10, width=64)
+    init_fn, step = make_train_step(model)
+
+    def fresh_steps():
+        out = pipe.run()
+        cached = batch_to_train_inputs(out, cam=cams)
+        model_, opt = init_fn(0, cached["images"])
+        losses = []
+        for i in range(TRAIN_FRESH_STEPS):
+            inputs = cached if i == 0 else batch_to_train_inputs(pipe.run(), cam=cams)
+            losses.append(step(model_, opt, inputs)[2]["loss"])
+        return cached, opt, torch.stack(losses).cpu()
+
+    (cached, opt, fresh), launches = count_launches(fresh_steps)
+    if launches != TRAIN_FRESH_STEPS:
+        fail(f"train: draw_gaussians launched {launches} times for {TRAIN_FRESH_STEPS} batches")
+    if tuple(cached["images"].shape) != (batch * num_cams, 256, 704, 3) or \
+            tuple(cached["targets"]["heatmap"].shape) != (batch * num_cams, 64, 176, 10):
+        fail(f"train: inputs of shape {tuple(cached['images'].shape)}, "
+             f"{tuple(cached['targets']['heatmap'].shape)}")
+    if not bool(torch.isfinite(fresh).all()):
+        fail(f"train: non-finite loss on fresh batches: {fresh.tolist()}")
+
+    torch.cuda.reset_peak_memory_stats()
+    events, losses = [], []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_CACHED_STEPS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        losses.append(step(model, opt, cached)[2]["loss"])
+        e1.record()
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / TRAIN_CACHED_STEPS * 1e3
+    peak_bytes = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    repeated = torch.stack(losses).cpu()
+    if not bool(torch.isfinite(repeated).all()) or not float(repeated[-1]) < float(repeated[0]):
+        fail(f"train: the loss on a repeated batch did not fall: {repeated.tolist()}")
+
+    # one full step under the sync check: adapting the batch, forward, loss,
+    # backward and Adam make no copy or wait between host and card
+    out = pipe.run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(model, opt, batch_to_train_inputs(out, cam=cams))
+    except RuntimeError as e:
+        fail(f"train: the step synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    pipe.stop()
+
+    fwd_flops, step_flops = conv_flops(model, batch * num_cams, (256, 704))
+    med = float(np.median(step_ms))
+    emit({
+        "phase": "train", "card": card,
+        "config": "CenterNetDetector(10, width=64), Adam lr 1e-3; 6 cams x batch 8 = 48 images "
+                  "of 256x704, heatmap 10x64x176, T=32",
+        "fresh_losses": fresh.tolist(), "repeated_loss_first": float(repeated[0]),
+        "repeated_loss_last": float(repeated[-1]), "step_device_ms": med,
+        "step_device_ms_all": step_ms, "step_host_ms": host_ms, "peak_memory_bytes": peak_bytes,
+        "conv_gflop_forward": fwd_flops / 1e9, "conv_gflop_step": step_flops / 1e9,
+        "bf16_peak_share": step_flops / (med / 1e3) / BF16_FLOP_PER_S,
+        "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+        "draw_gaussians_launches": launches, "sync_free_step": True,
+    })
+
+
+def input_idle_phase(dev, card: str):
+    from accvlab_tpu_torch.bench_pipeline import build_pipeline, measure_input_idle
+
+    pipe = build_pipeline(batch_size=8, device=dev)
+    try:
+        res, launches = count_launches(lambda: measure_input_idle(pipe, 6, n_iters=IDLE_ITERS,
+                                                                  width=64))
+        stats = pipe.stats()
+    finally:
+        pipe.stop()
+    batches = 1 + 2 * IDLE_ITERS  # the first, the warm-up window, the timed window
+    if launches != batches:
+        fail(f"input_idle: draw_gaussians launched {launches} times for {batches} batches")
+    emit({"phase": "input_idle", "card": card, "t_e2e_ms": res["t_e2e_s"] * 1e3,
+          "t_comp_ms": res["t_comp_s"] * 1e3, "idle": res["idle"],
+          "input_bound_frac": stats["input_bound_frac"], "n_iters": IDLE_ITERS,
+          "draw_gaussians_launches": launches})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -520,6 +763,9 @@ def main() -> int:
     replaces, results, entry_launches, n_golden = kernel_phase(dev, flush)
     emit({"phase": "goldens", "bitwise_groups": n_golden})
     main_launches = main_phase(dev, card)
+    train_parity_phase(dev)
+    train_phase(dev, card)
+    input_idle_phase(dev, card)
 
     kernels = []
     for k in KINDS:

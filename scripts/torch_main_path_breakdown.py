@@ -103,7 +103,12 @@ def pipelined_phase(batches: int):
         wall = time.perf_counter() - t0
     stats = pipe.stats()
     pipe.stop()
-    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    from torch.autograd import DeviceType
+
+    # device events only: the host-side operator rows carry their kernels'
+    # time as well, and would count it twice
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     device_us = sum(e.self_device_time_total for e in rows)
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     top = [{"name": e.key[:80], "calls": e.count,

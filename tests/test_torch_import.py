@@ -19,11 +19,13 @@ SUBPACKAGES = [
     "accvlab_tpu_torch.bench_pipeline",
     "accvlab_tpu_torch.heatmap",
     "accvlab_tpu_torch.hostcopy",
+    "accvlab_tpu_torch.models",
     "accvlab_tpu_torch.pipeline",
     "accvlab_tpu_torch.pipeline.inputs",
     "accvlab_tpu_torch.pipeline.operators",
     "accvlab_tpu_torch.pipeline.processing_steps",
     "accvlab_tpu_torch.ragged",
+    "accvlab_tpu_torch.train_centernet_e2e",
 ]
 COPIED_CSRC = [("hostcopy/csrc/pack.cpp", "accvlab_tpu/hostcopy/csrc/pack.cpp")]
 
