@@ -15,9 +15,13 @@ CenterNet training it feeds):
 * :mod:`.ragged` — ``RaggedBatch`` and the ragged gathers, scatters,
   boolean indexing and masked reductions (not auction matching);
 * :mod:`.hostcopy` — packed pinned host-to-device copies;
-* :mod:`.pipeline` — ``PipelineDefinition`` and the single-device executor,
-  the shuffled sharded input callable, and the device steps of the headline
-  pipeline;
+* :mod:`.pipeline` — ``PipelineDefinition`` and the single-device executor
+  (with data echoing and checkpoint/resume), the shuffled sharded input
+  callable, bench.py's JPEG dataset, and the steps of the headline pipeline
+  with its YUV 4:2:0 wire: ``ImageDecoder`` (PIL), the lossless plane codec
+  ``WirePlanePacker``/``WirePlaneUnpacker`` and ``YCbCrToRGBConverter``;
+* :mod:`.color` — YCbCr 4:2:0 -> RGB on the device and the host's chroma
+  subsampling;
 * :mod:`.models` — the CenterNet detector, its loss and train step, EMA and
   gradient accumulation, and the loader of the JAX package's flax
   parameters;
@@ -30,4 +34,4 @@ Entry points run on the CUDA device unless the caller passes
 
 __version__ = "0.1.0"
 
-__all__ = ["heatmap", "hostcopy", "models", "pipeline", "ragged"]
+__all__ = ["color", "heatmap", "hostcopy", "models", "pipeline", "ragged"]

@@ -1,12 +1,23 @@
 """The headline multi-camera pipeline of ``bench.py``, built on the port.
 
-``bench.py:130-269`` with raw frames in place of the JPEG/DCT wire (the DCT
-wire modules wait for libjpeg on the card machine, ROADMAP.md): 6 cameras of
-372x1024 RGB, 32 boxes of 10 classes each, batches of 8 read through
-``ShuffledShardedInputCallable``; one packed transfer per batch; then on the
-device ``AffineTransformer`` -> ``PhotoMetricDistorter`` ->
-``BoundingBoxToHeatmapConverter`` (the CUDA rasterizer) ->
-``ImageMeanStdDevNormalizer``.
+``bench.py:130-269`` as it runs on a host without libjpeg (the card
+machine): bench.py's dataset of 6 cameras of 372x1024 q90 JPEGs with 32
+boxes of 10 classes each (16 unique frame sets), batches of 8 read through
+``ShuffledShardedInputCallable``, and the **YUV 4:2:0 pixel wire**:
+
+* host: ``ImageDecoder(decode_resize_hw=out_hw, wire_format="yuv420")``
+  (PIL), then ``WirePlanePacker`` on the Y and CbCr planes;
+* one packed transfer per batch;
+* device: ``WirePlaneUnpacker`` -> ``YCbCrToRGBConverter`` ->
+  ``AffineTransformer`` -> ``PhotoMetricDistorter`` ->
+  ``BoundingBoxToHeatmapConverter`` (the CUDA rasterizer) ->
+  ``ImageMeanStdDevNormalizer``.
+
+``wire="frames"`` feeds raw RGB frames of the same structured noise instead
+(no decoder, no wire codec), the path of the earlier slices and of
+:func:`~.train_centernet_e2e.build_train_pipeline`. The DCT wire waits for
+libjpeg on the card machine (ROADMAP.md): ``wire="dct"`` raises, where
+bench.py falls back quietly to the YUV wire.
 
 ``measure_input_idle`` is ``bench.py:272-361``: the share of a CenterNet
 training loop fed by that pipeline that the card waits for input.
@@ -22,19 +33,32 @@ import torch
 
 from .models.centernet import CenterNetDetector, adam, init_params
 from .pipeline import PipelineDefinition
-from .pipeline.inputs import MultiCameraSyntheticProvider, ShuffledShardedInputCallable
+from .pipeline.inputs import (
+    MultiCameraJpegProvider,
+    MultiCameraSyntheticProvider,
+    ShuffledShardedInputCallable,
+)
 from .pipeline.processing_steps import (
     AffineTransformer,
     BoundingBoxToHeatmapConverter,
+    ImageDecoder,
     ImageMeanStdDevNormalizer,
     PhotoMetricDistorter,
+    WirePlanePacker,
+    WirePlaneUnpacker,
+    YCbCrToRGBConverter,
 )
+
+#: unique frame sets per wire: bench.py's 16 JPEG sets; the 2 raw-frame sets
+#: that the earlier slices measured
+NUM_UNIQUE = {"yuv": 16, "frames": 2}
+
 
 def headline_steps(out_hw=(256, 704), heatmap_hw=(64, 176), num_classes: int = 10,
                    affine_prob: float = 0.5, photometric_prob: float = 0.5,
                    heatmap_implementation: str = "auto", hw_out_name: Optional[str] = None):
-    """The device steps of bench.py's pipeline, in order. ``hw_out_name``
-    also asks the heatmap converter for each box's (h, w) on the heatmap
+    """The device steps of bench.py's pipeline after the wire, in order.
+    ``hw_out_name`` also asks the heatmap converter for each box's (h, w) on the heatmap
     grid under that name, as the training example's pipeline does."""
     p = photometric_prob
     return [
@@ -77,23 +101,51 @@ def headline_steps(out_hw=(256, 704), heatmap_hw=(64, 176), num_classes: int = 1
 def build_pipeline(batch_size: int = 8, device=None, num_threads: Optional[int] = None,
                    hw: Tuple[int, int] = (372, 1024), num_cams: int = 6,
                    out_hw=(256, 704), heatmap_hw=(64, 176), num_samples: int = 6400,
-                   num_unique: int = 2, affine_prob: float = 0.5,
+                   num_unique: Optional[int] = None, affine_prob: float = 0.5,
                    photometric_prob: float = 0.5, heatmap_implementation: str = "auto",
-                   seed: int = 0, hw_out_name: Optional[str] = None):
-    """bench.py's pipeline on the port (``device`` defaults to the card)."""
+                   seed: int = 0, hw_out_name: Optional[str] = None, wire: str = "yuv",
+                   wire_pack: bool = True, echo_factor: int = 1,
+                   cache_dir: Optional[str] = None):
+    """bench.py's pipeline on the port (``device`` defaults to the card).
+
+    ``wire``: ``"yuv"`` (bench.py on a host without libjpeg) or ``"frames"``
+    (raw RGB frames); ``"dct"`` raises. ``wire_pack=False`` ships the YUV
+    planes without the plane codec. ``num_unique`` defaults to
+    :data:`NUM_UNIQUE` of the wire. ``cache_dir`` keeps the encoded JPEGs in
+    bench.py's cache format there (``multicam_jpeg.bench_jpegs``).
+    """
+    if wire == "dct":
+        raise ValueError(
+            "wire='dct' (the JPEG DCT-coefficient wire) is not ported: it waits for "
+            "libjpeg on the card machine (ROADMAP.md); use wire='yuv'"
+        )
+    if wire not in NUM_UNIQUE:
+        raise ValueError(f"wire must be 'yuv' or 'frames', got {wire!r}")
     if num_threads is None:
         num_threads = max(2, os.cpu_count() or 4)
-    provider = MultiCameraSyntheticProvider(num_samples=num_samples, num_unique=num_unique,
-                                            hw=hw, num_cams=num_cams)
+    if num_unique is None:
+        num_unique = NUM_UNIQUE[wire]
+    if wire == "yuv":
+        provider = MultiCameraJpegProvider(num_samples=num_samples, num_unique=num_unique,
+                                           hw=hw, num_cams=num_cams, cache_dir=cache_dir)
+        steps = [ImageDecoder("image", decode_resize_hw=out_hw, wire_format="yuv420")]
+        if wire_pack:  # bench.py's ACCVLAB_BENCH_WIRE_PACK
+            steps += [WirePlanePacker(["image", "image_cbcr"]),
+                      WirePlaneUnpacker(["image", "image_cbcr"])]
+        steps.append(YCbCrToRGBConverter("image"))
+    else:
+        provider = MultiCameraSyntheticProvider(num_samples=num_samples, num_unique=num_unique,
+                                                hw=hw, num_cams=num_cams)
+        steps = []
     inp = ShuffledShardedInputCallable(provider, batch_size=batch_size, shuffle=True)
-    steps = headline_steps(out_hw, heatmap_hw, affine_prob=affine_prob,
-                           photometric_prob=photometric_prob,
-                           heatmap_implementation=heatmap_implementation,
-                           hw_out_name=hw_out_name)
+    steps += headline_steps(out_hw, heatmap_hw, affine_prob=affine_prob,
+                            photometric_prob=photometric_prob,
+                            heatmap_implementation=heatmap_implementation,
+                            hw_out_name=hw_out_name)
     definition = PipelineDefinition(inp, steps, check_data_format=False,
                                     copy_external_source_passthrough_outputs=False)
     return definition.get_pipeline(batch_size=batch_size, num_threads=num_threads,
-                                   device=device, seed=seed)
+                                   device=device, seed=seed, echo_factor=echo_factor)
 
 
 def model_inputs(out: Dict[str, torch.Tensor], num_cams: int):

@@ -20,8 +20,13 @@ from a ``torch.Generator`` seeded from ``(seed, batch_idx)`` — deterministic
 for a batch regardless of prefetch timing, identical on the CPU and on the
 card, and unrelated to the JAX package's threefry bits.
 
-Not ported yet (ROADMAP.md): mesh sharding, data echoing,
-``get_state``/``set_state``, ``device_program_text``,
+As in the JAX package the executor echoes data (``echo_factor``: each host
+batch is transferred once and delivered that many times, each replay with
+its own device randomness, keyed ``(seed, batch_idx, echo)``) and
+checkpoints its consumed position (``get_state``/``set_state``, the JAX
+package's state dict, mid-echo positions included).
+
+Not ported yet (ROADMAP.md): mesh sharding, ``device_program_text``,
 ``export_device_program``, ``start_trace``, process workers.
 """
 
@@ -47,6 +52,8 @@ from .sample_data_group import SampleDataGroup
 # fields up to this size ride the packed transfer (one field of bench.py's
 # batch, 8 frames of 372x1024x3, is 9 MB)
 _PACK_FIELD_MAX_BYTES = 32 << 20
+# how long reset()/set_state() wait for a producer to finish its batch
+_HALT_TIMEOUT_S = 60.0
 
 
 def _split_steps(steps: Sequence[PipelineStepBase]):
@@ -147,10 +154,17 @@ class PipelineDefinition:
         device=None,
         seed: int = 0,
         prefetch_queue_depth: Optional[int] = None,
+        echo_factor: int = 1,
     ) -> "TorchPipeline":
         """Build the executable pipeline. ``device`` defaults to the CUDA
         device (raises without a card); ``device="cpu"`` runs every step's
-        plain PyTorch version on the CPU."""
+        plain PyTorch version on the CPU.
+
+        ``echo_factor``: data echoing (Choi et al. 2019). Each host batch is
+        delivered ``echo_factor`` times, transferred to the device once, with
+        its own device randomness per replay, so the delivered batches per
+        epoch grow by the factor while host work and transfer do not.
+        """
         return TorchPipeline(
             self,
             batch_size=batch_size,
@@ -162,6 +176,7 @@ class PipelineDefinition:
             ),
             parallel=self._use_parallel,
             check_data_format=self._check_data_format,
+            echo_factor=echo_factor,
         )
 
 
@@ -183,6 +198,7 @@ class TorchPipeline:
         prefetch_queue_depth: int,
         parallel: bool,
         check_data_format: bool,
+        echo_factor: int = 1,
     ):
         self._device = resolve_device(device)
         if self._device.type == "cuda" and self._device.index is None:
@@ -223,6 +239,33 @@ class TorchPipeline:
         self._iteration = 0
         self._global_batch = 0
 
+        # consumed position (checkpoint/resume): what the caller has
+        # retrieved, as opposed to the producer counters above, which run
+        # ahead by the prefetch depth
+        self._consumed_iteration = 0
+        self._consumed_global = 0
+        self._consumed_input_state = None
+        self._input_state_captured = False
+        # set_state arms this so that one iterator-front reset does not
+        # discard the restored position; cleared on first use
+        self._resume_armed = False
+
+        # data echoing: each host batch is delivered echo_factor times,
+        # transferred once, with its own device randomness per replay
+        self._echo_factor = int(echo_factor)
+        if self._echo_factor < 1:
+            raise ValueError(f"echo_factor must be >= 1, got {echo_factor}")
+        if self._echo_factor > 1 and not self._device_steps:
+            warnings.warn(
+                "echo_factor > 1 without any device-placed step replays "
+                "identical batches (no augmentation to diversify them); "
+                "example echoing still helps input-bound training but "
+                "consider a device-side augmentation step."
+            )
+        self._echo_item = None  # ((idx, iter, state, batch), next_echo)
+        self._echo_start = 0  # first echo index of the next popped batch
+        self._consumed_echo_next = 0
+
         self._queue: "queue.Queue" = queue.Queue(maxsize=self._depth)
         self._producer: Optional[threading.Thread] = None
         self._producer_stop = threading.Event()
@@ -236,6 +279,7 @@ class TorchPipeline:
         self._stat_consumer_wait_s = 0.0
         self._stat_device_stage_s = 0.0
         self._stat_transfer_bytes = 0
+        self._stat_transfers = 0
 
     @property
     def device(self) -> torch.device:
@@ -275,8 +319,9 @@ class TorchPipeline:
         return sdg
 
     def _produce_host_batch(self):
-        """Run input + host steps for one batch. Returns
-        ``(batch_idx, stacked numpy fields)`` or raises StopIteration."""
+        """Run input + host steps for one batch. Returns ``(batch_idx,
+        iteration after it, the input's state after it, stacked numpy
+        fields)`` or raises StopIteration."""
         if isinstance(self._definition._input, CallableBase):
             if self._pool is not None:
                 def load_and_process(i):
@@ -314,7 +359,20 @@ class TorchPipeline:
 
         self._iteration += 1
         self._global_batch += 1
-        return self._global_batch - 1, self._stack_samples(samples)
+        return (self._global_batch - 1, self._iteration, self._capture_input_state(),
+                self._stack_samples(samples))
+
+    def _capture_input_state(self):
+        """The input's resume state, or ``None`` for inputs without the
+        protocol (plain callables are pure functions of ``SampleInfo``: the
+        pipeline counters alone resume them)."""
+        inp = self._definition._input
+        if not hasattr(inp, "get_state"):
+            return None
+        try:
+            return inp.get_state()
+        except NotImplementedError:
+            return None
 
     def _stack_samples(self, samples: List[SampleDataGroup]):
         names = self._host_out_blueprint.field_names_flat
@@ -357,30 +415,33 @@ class TorchPipeline:
         from ..hostcopy import start_copy
 
         self._stat_transfer_bytes = sum(a.nbytes for a in host_batch)
+        self._stat_transfers += 1
         handle = start_copy(
             list(host_batch), device=self._device, use_background_thread=False,
             pack_candidate_max_bytes=_PACK_FIELD_MAX_BYTES, merge_dtype_chunks=True,
         )
         return tuple(handle.get())
 
-    def run_device_stage(self, leaves: Sequence[torch.Tensor], batch_idx: int) -> tuple:
+    def run_device_stage(self, leaves: Sequence[torch.Tensor], batch_idx: int,
+                         echo_i: int = 0) -> tuple:
         """The device steps on one transferred batch (flat leaves in the
-        host-stage output order). Randomness is seeded from
-        ``(seed, batch_idx)``, so the same leaves and index give the same
-        outputs. Returns the flat output leaves."""
+        host-stage output order). Randomness is seeded from ``(seed,
+        batch_idx)``, and with ``echo_factor > 1`` from ``(seed, batch_idx,
+        echo_i)``, so the same leaves and indices give the same outputs. The
+        leaves are not modified, so a replay may run on them again. Returns
+        the flat output leaves."""
         if not self._device_steps:
             return tuple(leaves)
         sdg = self._host_out_blueprint.get_empty_like_self()
         sdg.set_data(list(leaves))
-        ctx = DeviceRandomContext((self._seed, batch_idx), device=self._device)
+        key = (self._seed, batch_idx) if self._echo_factor == 1 else (self._seed, batch_idx,
+                                                                         echo_i)
+        ctx = DeviceRandomContext(key, device=self._device)
         with _F32MatmulScope():
             for step in self._device_steps:
                 step.set_random_context(ctx)
                 sdg = step(sdg) if self._check else step._process(sdg)
         return tuple(sdg.get_data())
-
-    def _run_device_stage(self, host_batch: tuple, batch_idx: int):
-        return self.run_device_stage(self._transfer(host_batch), batch_idx)
 
     # ------------------------------------------------------------------ #
     # Prefetching iterator protocol                                      #
@@ -411,7 +472,17 @@ class TorchPipeline:
             self._stat_produced += 1
 
     def _ensure_producer(self):
+        # spawn only when no producer exists for this run (reset()/set_state
+        # clear it); a producer that ran and ended has already queued its
+        # terminal item
         if self._producer is None and not self._exhausted:
+            # iteration starts: a later reset is an epoch boundary again
+            self._resume_armed = False
+            # the input's state before the producer advances it is the
+            # position get_state reports until a batch of this run is consumed
+            if not self._input_state_captured:
+                self._consumed_input_state = self._capture_input_state()
+                self._input_state_captured = True
             self._producer_stop.clear()
             self._producer = threading.Thread(
                 target=self._producer_loop, daemon=True, name="accvlab-prefetch"
@@ -424,34 +495,53 @@ class TorchPipeline:
     def __next__(self):
         if self._exhausted:
             raise StopIteration
-        self._ensure_producer()
-        t_wait0 = time.monotonic()
-        while True:
-            try:
-                item = self._queue.get(timeout=5.0)
-                break
-            except queue.Empty:
-                if self._producer is None or not self._producer.is_alive():
-                    self._exhausted = True
-                    raise RuntimeError(
-                        "pipeline producer thread died without delivering a batch or an error"
-                    )
-        if item is self._END:
-            self._exhausted = True
-            raise StopIteration
-        if isinstance(item, Exception):
-            self._exhausted = True
-            raise item
+        if self._echo_item is None:
+            self._ensure_producer()
+            t_wait0 = time.monotonic()
+            while True:
+                try:
+                    item = self._queue.get(timeout=5.0)
+                    break
+                except queue.Empty:
+                    if self._producer is None or not self._producer.is_alive():
+                        self._exhausted = True
+                        raise RuntimeError(
+                            "pipeline producer thread died without delivering a batch or an error"
+                        )
+            if item is self._END:
+                self._exhausted = True
+                raise StopIteration
+            if isinstance(item, Exception):
+                self._exhausted = True
+                raise item
+            self._stat_consumer_wait_s += time.monotonic() - t_wait0
+            # this host batch starts at echo 0, or mid-echo after a resume
+            self._echo_item = (item, self._echo_start)
+            self._echo_start = 0
+        (batch_idx, iter_after, input_state_after, batch), echo_i = self._echo_item
         t_dev0 = time.monotonic()
-        self._stat_consumer_wait_s += t_dev0 - t_wait0
-        batch_idx, host_batch = item
         try:
-            out = self._run_device_stage(host_batch, batch_idx)
+            if isinstance(batch[0], np.ndarray):  # the first delivery transfers
+                batch = self._transfer(batch)
+            out = self.run_device_stage(batch, batch_idx, echo_i)
         except Exception:
             self._exhausted = True
+            self._echo_item = None
             raise
         self._stat_device_stage_s += time.monotonic() - t_dev0
         self._stat_consumed += 1
+        # batch delivered: advance the consumed position (the resume point)
+        if echo_i + 1 < self._echo_factor:
+            # keep the transferred batch for its next replay
+            self._echo_item = ((batch_idx, iter_after, input_state_after, batch), echo_i + 1)
+            self._consumed_global = batch_idx
+            self._consumed_echo_next = echo_i + 1
+        else:
+            self._echo_item = None
+            self._consumed_global = batch_idx + 1
+            self._consumed_echo_next = 0
+            self._consumed_iteration = iter_after
+            self._consumed_input_state = input_state_after
         return [dict(zip(self._output_names, out))]
 
     def run(self):
@@ -459,46 +549,188 @@ class TorchPipeline:
         return self.__next__()[0]
 
     def _halt_producer(self):
-        """Stop + join the producer thread and discard prefetched batches."""
+        """Stop and join the producer thread, discard prefetched batches and
+        any replays still due of the current host batch.
+
+        Waits until the thread has exited (draining the queue so that a
+        blocked ``put`` finishes): a producer still mid-batch would overwrite
+        the counters ``set_state`` restores and advance a stateful input past
+        the restored position. The wait is bounded, so an input stuck in
+        external I/O raises instead of hanging ``reset()``/``set_state()``.
+        """
         self._producer_stop.set()
         t = self._producer
-        while t is not None and t.is_alive():
-            try:
-                while True:
-                    self._queue.get_nowait()
-            except queue.Empty:
-                pass
-            t.join(timeout=0.25)
+        if t is not None and t.is_alive():
+            t0 = time.monotonic()
+            warn_at = t0 + 15.0
+            while t.is_alive():
+                try:
+                    while True:
+                        self._queue.get_nowait()
+                except queue.Empty:
+                    pass
+                t.join(timeout=0.25)
+                now = time.monotonic()
+                if t.is_alive() and now >= warn_at:
+                    warnings.warn(
+                        "pipeline producer is still finishing its in-flight "
+                        "host batch; waiting for it to stop cleanly"
+                    )
+                    warn_at = float("inf")
+                if t.is_alive() and now - t0 >= _HALT_TIMEOUT_S:
+                    raise RuntimeError(
+                        f"pipeline producer did not stop within {_HALT_TIMEOUT_S:.0f}s: "
+                        "the input callable appears stuck in external I/O. The "
+                        "pipeline state is NOT safe for an exact resume."
+                    )
         self._queue = queue.Queue(maxsize=self._depth)
         self._producer = None
+        self._echo_item = None
+        self._echo_start = 0
+        self._consumed_echo_next = 0
+
+    def _reset_from_iterator_front(self):
+        """The reset an iterator front issues when it is constructed. The
+        first one after :meth:`set_state` does nothing, so that the restored
+        position is not discarded before a batch of the resumed run is
+        consumed; a user's :meth:`reset` always resets."""
+        if self._resume_armed:
+            self._resume_armed = False
+            return
+        self.reset()
 
     def reset(self):
-        """Start the next epoch (parity with the DALI iterator reset)."""
+        """Start the next epoch (parity with the DALI iterator reset).
+
+        A mid-epoch reset rolls the batch counter, which keys the device
+        randomness, forward to the epoch's end when the input advertises
+        its length, so the next epoch's batches equal an uninterrupted
+        run's whatever the prefetch had produced.
+        """
+        self._resume_armed = False
+        # a partly echoed batch means this epoch has delivered output even
+        # when _iteration is 0; read it before _halt_producer clears it
+        mid_echo = self._consumed_echo_next > 0 or self._echo_start > 0
         self._halt_producer()
-        if self._exhausted or self._iteration > 0:
+        if self._exhausted or self._iteration > 0 or mid_echo:
+            steps = getattr(self._definition._input, "length", None)  # host batches per epoch
+            if steps is not None:
+                # never back past batches the producer already keyed
+                steps = max(int(steps), self._iteration)
+                self._global_batch = self._global_batch - self._iteration + steps
             self._epoch += 1
         self._iteration = 0
         self._exhausted = False
+        # prefetched batches were dropped: the consumed position re-syncs to
+        # the producer counters, and the input's state is captured again at
+        # the next producer start
+        self._consumed_iteration = 0
+        self._consumed_global = self._global_batch
+        self._input_state_captured = False
+
+    # ------------------------------------------------------------------ #
+    # Checkpoint / resume                                                #
+    # ------------------------------------------------------------------ #
+
+    def get_state(self) -> dict:
+        """JSON-serializable snapshot of the *consumed* position, in the JAX
+        package's format (``version`` 1; ``echo`` with ``factor`` and
+        ``next`` when ``echo_factor > 1``).
+
+        Rebuild the pipeline with the same arguments and input and call
+        :meth:`set_state` before the first ``__next__``: the batches then
+        continue bit for bit, device randomness included, from the first
+        batch the interrupted run did not consume.
+        """
+        if not self._input_state_captured:
+            self._consumed_input_state = self._capture_input_state()
+            self._input_state_captured = True
+        state = {
+            "version": 1,
+            "epoch": self._epoch,
+            "iteration": self._consumed_iteration,
+            "global_batch": self._consumed_global,
+            "input_state": self._consumed_input_state,
+        }
+        if self._echo_factor > 1:
+            # global_batch points at the host batch to produce again; 'next'
+            # is its first replay not yet delivered
+            state["echo"] = {"factor": self._echo_factor, "next": self._consumed_echo_next}
+        return state
+
+    def set_state(self, state: dict):
+        """Restore a position captured by :meth:`get_state`. Stops the
+        producer (waiting for a batch in flight) and discards prefetched
+        batches."""
+        if state.get("version") != 1:
+            raise ValueError(f"Unknown pipeline state version: {state.get('version')!r}")
+        echo = state.get("echo")
+        state_factor = 1 if echo is None else int(echo["factor"])
+        if state_factor != self._echo_factor:
+            raise ValueError(
+                f"Checkpoint was taken with echo_factor={state_factor}; this "
+                f"pipeline has echo_factor={self._echo_factor} — the delivered "
+                "batch streams would diverge. Rebuild with the matching factor."
+            )
+        self._halt_producer()
+        self._echo_start = 0 if echo is None else int(echo["next"])
+        self._consumed_echo_next = self._echo_start
+        self._epoch = int(state["epoch"])
+        self._iteration = int(state["iteration"])
+        self._global_batch = int(state["global_batch"])
+        self._consumed_iteration = self._iteration
+        self._consumed_global = self._global_batch
+        self._exhausted = False
+        input_state = state.get("input_state")
+        if input_state is not None:
+            if hasattr(self._definition._input, "set_state"):
+                self._definition._input.set_state(input_state)
+            else:
+                warnings.warn(
+                    "The checkpoint carries an input state (the input "
+                    "implements get_state) but the input has no set_state — "
+                    "the recorded position cannot be restored and the input "
+                    "continues from its current (fresh-constructed) "
+                    "position. Implement set_state, or carry the position "
+                    "through constructor arguments."
+                )
+        elif isinstance(self._definition._input, IterableBase):
+            warnings.warn(
+                "Resuming a pipeline over an iterable input without a saved "
+                "input state: the pipeline counters are restored, but the "
+                "iterable continues from its current position — exact resume "
+                "is only guaranteed for stateless inputs or iterables "
+                "implementing get_state/set_state."
+            )
+        self._consumed_input_state = input_state
+        # without an input snapshot, capture the input's own state at first use
+        self._input_state_captured = input_state is not None
+        self._resume_armed = True
 
     @property
     def length(self) -> Optional[int]:
-        """Batches per epoch when the input advertises it, else ``None``."""
+        """Batches delivered per epoch when the input advertises its length:
+        its host batches times ``echo_factor``; else ``None``."""
         n = getattr(self._definition._input, "length", None)
-        return None if n is None else int(n)
+        return None if n is None else int(n) * self._echo_factor
 
     def stats(self) -> dict:
-        """Live throughput/occupancy counters (same keys as the JAX
-        executor's, without ``program_cache``): ``produced``/``consumed``,
-        ``producer_busy_s``, ``producer_blocked_s``, ``consumer_wait_s``,
-        ``device_stage_s`` (transfer + enqueue of the device steps; device
-        work is asynchronous), ``queue_depth``/``queue_size``,
-        ``bytes_per_batch`` and ``input_bound_frac``."""
+        """Live throughput/occupancy counters (the JAX executor's keys,
+        without ``program_cache``, plus ``transfers``): ``produced`` (host
+        batches built) / ``consumed`` (batches delivered, ``echo_factor`` per
+        host batch), ``transfers`` (host-to-device transfers, one per host
+        batch), ``producer_busy_s``, ``producer_blocked_s``,
+        ``consumer_wait_s``, ``device_stage_s`` (transfer + enqueue of the
+        device steps; device work is asynchronous),
+        ``queue_depth``/``queue_size``, ``bytes_per_batch`` (of the last
+        transfer) and ``input_bound_frac``."""
         wait = self._stat_consumer_wait_s
         dev = self._stat_device_stage_s
         denom = wait + dev
         return {
             "produced": self._stat_produced,
             "consumed": self._stat_consumed,
+            "transfers": self._stat_transfers,
             "producer_busy_s": self._stat_producer_busy_s,
             "producer_blocked_s": self._stat_producer_blocked_s,
             "consumer_wait_s": wait,

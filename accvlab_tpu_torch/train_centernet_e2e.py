@@ -19,10 +19,10 @@ from .ragged.bool_indexing import stable_active_first
 
 
 def build_train_pipeline(**kwargs):
-    """bench.py's pipeline (the arguments of
+    """bench.py's pipeline on raw frames (the other arguments of
     :func:`~.bench_pipeline.build_pipeline`) whose heatmap converter also
     outputs each box's (h, w) as ``annotations.hw``."""
-    return build_pipeline(hw_out_name="hw", **kwargs)
+    return build_pipeline(hw_out_name="hw", wire="frames", **kwargs)
 
 
 def batch_to_train_inputs(batch: Dict[str, torch.Tensor],

@@ -5,8 +5,9 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each printing one JSON line (a failing phase exits non-zero):
 
 1. header  — card name and power limit (nvidia-smi), torch and CUDA versions;
-2. build   — the host packer (g++) and the CUDA rasterizer (nvcc, sm_90a),
-             compiled in parallel into accvlab_tpu_torch/_build/;
+2. build   — the host packer and the wire encoder (g++) and the CUDA
+             rasterizer (nvcc, sm_90a), compiled in parallel into
+             accvlab_tpu_torch/_build/;
 3. kernels — the rasterizer through each entry point (draw_heatmap_batched,
              its classwise form, draw_heatmap, draw_gaussians), exact and
              fast exp, at the main path's shapes and the reference headline
@@ -19,34 +20,51 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              kernel (EDGE_CASES, correctness only), and one draw_gaussians
              call under torch.cuda.set_sync_debug_mode("error"), which fails
              on any copy or wait between host and card;
-4. main    — bench.py's multi-camera pipeline on the port at full width
-             (6 x 372x1024 RGB, batch 8, out 256x704, heatmap 10x64x176,
-             T=32) through run(): 2 warm-up batches, then 3 timed windows of
-             100 batches (frames/s per window and their median); outputs
+4. main    — bench.py's multi-camera pipeline on the port at full width, on
+             bench.py's YUV 4:2:0 wire (6 x 372x1024 q90 JPEG, 16 unique
+             frame sets, PIL decode + resize to 256x704 and the plane codec
+             on the host, unpack + colour conversion on the card; batch 8,
+             heatmap 10x64x176, T=32) through run(): 2 warm-up batches, then
+             3 timed windows of 100 batches (frames/s per window and their
+             median); bytes per batch and the packer's choices; outputs
              checked, one batch recomputed with the plain heatmap version
              and compared;
-5. train_parity — a seeded CenterNet (width 64) on make_example_batch, on
+5. main_frames — one window of 100 batches of the same pipeline on raw RGB
+             frames (the earlier slices' path), for a same-call comparison;
+6. wire    — one host batch decoded on the card, bitwise equal to the
+             unpacked planes and to the CPU decode; the RGB of the packed
+             and the unpacked wire bitwise equal (augmentation off); the
+             colour conversion on the card within 1 of the CPU's, with the
+             share that differs; unpack + convert under the sync check;
+7. echo    — echo_factor=2 on the wire: delivered batches twice the
+             transfers, the replays of a host batch different, delivered
+             frames/s; a mid-echo get_state, a fresh pipeline and set_state
+             continue bitwise for 3 batches;
+8. train_parity — a seeded CenterNet (width 64) on make_example_batch, on
              the card and on the CPU (the port's plain path): loss, heads
              and parameter gradients within the bf16 tolerances stated in
              TRAIN_TOL; and the ragged gather's backward at the main path's
              shapes with many duplicate indices, twice on the card: both
              bitwise equal to each other and to the CPU's;
-6. train   — the training path at full width: build_train_pipeline (6
-             cameras x batch 8, heatmap 10x64x176) -> batch_to_train_inputs
-             of all cameras (48 images) -> make_train_step(CenterNetDetector(
-             10, width=64)): 20 steps on fresh batches (every loss finite),
-             30 steps on one cached batch (the loss falls below its first
-             value; device time per step with CUDA events, peak memory, conv
-             FLOPs per second as a share of the bf16 peak), then one step
-             under torch.cuda.set_sync_debug_mode("error");
-7. input_idle — bench_pipeline.measure_input_idle(pipe, 6, n_iters=50,
-             width=64) on bench.py's pipeline: t_e2e, t_comp, idle and the
-             pipeline's input_bound_frac;
-8. the {"kernels": [...]} line, the nvidia-smi line, and last the result
+9. train   — the training path at full width: build_train_pipeline (raw
+             frames, 6 cameras x batch 8, heatmap 10x64x176) ->
+             batch_to_train_inputs of all cameras (48 images) ->
+             make_train_step(CenterNetDetector(10, width=64)): 20 steps on
+             fresh batches (every loss finite), 30 steps on one cached batch
+             (the loss falls below its first value; device time per step
+             with CUDA events, peak memory, conv FLOPs per second as a share
+             of the bf16 peak), then one step under
+             torch.cuda.set_sync_debug_mode("error");
+10. input_idle — bench_pipeline.measure_input_idle(pipe, 6, n_iters=50,
+             width=64) on the YUV wire and on raw frames: t_e2e, t_comp,
+             idle and the pipeline's input_bound_frac of each;
+11. the {"kernels": [...]} line, the nvidia-smi line, and last the result
    line {"ok": true, "device": {...}}.
 
-The pipeline phases (main, train, input_idle) each count the rasterizer's
-launches from 0 and fail unless it ran once per pipeline batch.
+The pipeline phases (main, main_frames, echo, train, input_idle) each count
+the rasterizer's launches from 0 and fail unless it ran once per delivered
+pipeline batch. The encoded JPEGs are kept in build/bench_cache (bench.py's
+cache format) for the phases after the first.
 
 Exits non-zero without a result when torch.cuda.is_available() is false.
 Imports nothing of JAX.
@@ -79,6 +97,12 @@ BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 TRAIN_FRESH_STEPS = 20
 TRAIN_CACHED_STEPS = 30
 IDLE_ITERS = 50
+ECHO_BATCHES = 100
+RESUME_BATCHES = 3
+# the YUV wire's planes of one batch before the codec: 48 Y planes of 256x704
+# and 48 CbCr planes of 128x352x2
+UNPACKED_PLANE_BYTES = 48 * (256 * 704 + 128 * 352 * 2)
+CACHE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "bench_cache")
 # card against CPU, same weights and batch, both with bf16 convs: a bf16
 # rounding is 2^-8 of a value, and the two sides accumulate the convs in
 # different orders, so some roundings land one step apart and propagate.
@@ -461,12 +485,34 @@ def check_outputs(out, num_cams: int, batch: int) -> None:
             fail(f"main path: {p}heatmap has no peak of 1 at some active centre")
 
 
+def timed_windows(pipe, windows: int, batches: int):
+    """Seconds of each of ``windows`` back-to-back windows of ``batches``
+    run() calls, each ended by a synchronise; returns them and the last
+    output."""
+    window_s, out = [], None
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            out = pipe.run()
+        torch.cuda.synchronize()
+        window_s.append(time.perf_counter() - t0)
+    return window_s, out
+
+
+def packer_of(pipe):
+    from accvlab_tpu_torch.pipeline.processing_steps import WirePlanePacker
+
+    return next(s for s in pipe._host_steps if isinstance(s, WirePlanePacker))
+
+
 def main_phase(dev, card: str):
     from accvlab_tpu_torch.bench_pipeline import build_pipeline
     from accvlab_tpu_torch.heatmap import LAUNCHES, reset_launch_counts
 
     batch, num_cams = 8, 6
-    pipe = build_pipeline(batch_size=batch, device=dev)
+    t0 = time.perf_counter()
+    pipe = build_pipeline(batch_size=batch, device=dev, cache_dir=CACHE_DIR)
+    setup_s = time.perf_counter() - t0
     first = {k: v.clone() for k, v in pipe.run().items()}  # batch 0, kept for the plain recompute
     pipe.run()
     torch.cuda.synchronize()
@@ -474,25 +520,24 @@ def main_phase(dev, card: str):
     # MAIN_WINDOWS back-to-back windows of MAIN_WINDOW_BATCHES batches each,
     # on one pipeline: frames/s is reported per window, with their median
     reset_launch_counts()
-    window_s = []
-    for _ in range(MAIN_WINDOWS):
-        t0 = time.perf_counter()
-        for _ in range(MAIN_WINDOW_BATCHES):
-            out = pipe.run()
-        torch.cuda.synchronize()
-        window_s.append(time.perf_counter() - t0)
+    window_s, out = timed_windows(pipe, MAIN_WINDOWS, MAIN_WINDOW_BATCHES)
     n_batches = MAIN_WINDOWS * MAIN_WINDOW_BATCHES
     launches = LAUNCHES["draw_gaussians"]
     main_launches = dict(LAUNCHES)
     stats = pipe.stats()
+    wire_stats = packer_of(pipe).last_batch_stats
     pipe.stop()
     if launches != n_batches:
         fail(f"main path: draw_gaussians launched {launches} times for {n_batches} batches")
     check_outputs(out, num_cams, batch)
     check_outputs(first, num_cams, batch)
+    if not 0 < stats["bytes_per_batch"] < UNPACKED_PLANE_BYTES:
+        fail(f"main path: {stats['bytes_per_batch']} bytes per batch, not below the "
+             f"{UNPACKED_PLANE_BYTES} bytes of the unpacked planes")
 
     # batch 0 again, with the plain heatmap version: same host batch, same draws
-    plain_pipe = build_pipeline(batch_size=batch, device=dev, heatmap_implementation="torch")
+    plain_pipe = build_pipeline(batch_size=batch, device=dev, heatmap_implementation="torch",
+                                cache_dir=CACHE_DIR)
     plain = plain_pipe.run()
     torch.cuda.synchronize()
     plain_pipe.stop()
@@ -515,12 +560,177 @@ def main_phase(dev, card: str):
         "frames_per_s_windows": fps, "ms_per_batch": float(np.median(ms_per_batch)),
         "ms_per_batch_windows": ms_per_batch, "batches": n_batches,
         "draw_gaussians_launches": launches, "bytes_per_batch": stats["bytes_per_batch"],
+        "unpacked_plane_bytes": UNPACKED_PLANE_BYTES, "packer_last_batch": wire_stats,
         "consumer_wait_s": stats["consumer_wait_s"], "device_stage_s": stats["device_stage_s"],
+        "producer_busy_s": stats["producer_busy_s"], "produced": stats["produced"],
         "input_bound_frac": stats["input_bound_frac"], "plain_recompute_max_abs_err": worst,
-        "config": "raw RGB frames (no DCT wire): 6 cams x 372x1024, batch 8 -> 256x704, "
-                  "heatmap 10x64x176, T=32",
+        "setup_s": setup_s,
+        "config": "YUV 4:2:0 wire, packed: 6 cams x 372x1024 q90 JPEG (16 unique sets, PIL "
+                  "decode + resize to 256x704), batch 8, heatmap 10x64x176, T=32",
     })
     return main_launches
+
+
+def main_frames_phase(dev, card: str):
+    from accvlab_tpu_torch.bench_pipeline import build_pipeline
+
+    batch, num_cams = 8, 6
+    pipe = build_pipeline(batch_size=batch, device=dev, wire="frames")
+    try:
+        pipe.run()
+        pipe.run()
+        torch.cuda.synchronize()
+        (window_s, out), launches = count_launches(
+            lambda: timed_windows(pipe, 1, MAIN_WINDOW_BATCHES))
+        stats = pipe.stats()
+    finally:
+        pipe.stop()
+    if launches != MAIN_WINDOW_BATCHES:
+        fail(f"main_frames: draw_gaussians launched {launches} times for "
+             f"{MAIN_WINDOW_BATCHES} batches")
+    check_outputs(out, num_cams, batch)
+    emit({"phase": "main_frames", "card": card,
+          "frames_per_s": MAIN_WINDOW_BATCHES * batch * num_cams / window_s[0],
+          "ms_per_batch": window_s[0] / MAIN_WINDOW_BATCHES * 1e3,
+          "batches": MAIN_WINDOW_BATCHES, "draw_gaussians_launches": launches,
+          "bytes_per_batch": stats["bytes_per_batch"],
+          "input_bound_frac": stats["input_bound_frac"],
+          "config": "raw RGB frames (2 unique sets): 6 cams x 372x1024, batch 8 -> 256x704"})
+
+
+def wire_planes(pipe, leaves):
+    """The Y and CbCr planes of one batch's leaves: decoded by
+    WirePlaneUnpacker when the pipeline packs them, else as they are."""
+    from accvlab_tpu_torch.pipeline.processing_steps import WirePlaneUnpacker
+
+    sdg = pipe._host_out_blueprint.get_empty_like_self()
+    sdg.set_data(list(leaves))
+    if any(isinstance(s, WirePlaneUnpacker) for s in pipe._device_steps):
+        sdg = WirePlaneUnpacker(["image", "image_cbcr"])._process(sdg)
+    return {n: v for n, v in zip(sdg.field_names_flat, sdg.get_data())
+            if n.endswith(".image") or n.endswith(".image_cbcr")}
+
+
+def wire_phase(dev, card: str):
+    from accvlab_tpu_torch.bench_pipeline import build_pipeline
+    from accvlab_tpu_torch.color import ycbcr420_to_rgb
+    from accvlab_tpu_torch.pipeline.processing_steps import WirePlaneUnpacker, YCbCrToRGBConverter
+
+    kw = dict(batch_size=8, device=dev, cache_dir=CACHE_DIR, affine_prob=0.0,
+              photometric_prob=0.0)
+    packed, raw = build_pipeline(**kw), build_pipeline(wire_pack=False, **kw)
+    try:
+        host_packed = packed._produce_host_batch()[3]
+        host_raw = raw._produce_host_batch()[3]
+        on_card = wire_planes(packed, packed._transfer(host_packed))
+        on_cpu = wire_planes(packed, [torch.from_numpy(a) for a in host_packed])
+        unpacked = wire_planes(raw, [torch.from_numpy(a) for a in host_raw])
+        torch.cuda.synchronize()
+        for name, want in unpacked.items():
+            if not (torch.equal(on_card[name].cpu(), want) and torch.equal(on_cpu[name], want)):
+                fail(f"wire: the decoded plane {name} differs from the unpacked plane")
+
+        # the colour conversion on the card against its CPU run
+        n_diff = n_all = worst = 0
+        for c in range(6):
+            y, cbcr = (unpacked[f"cameras.[{c}].{f}"] for f in ("image", "image_cbcr"))
+            got = ycbcr420_to_rgb(y.to(dev), cbcr.to(dev)).cpu().to(torch.int32)
+            want = ycbcr420_to_rgb(y, cbcr).to(torch.int32)
+            d = (got - want).abs()
+            worst, n_diff, n_all = max(worst, int(d.max())), n_diff + int((d > 0).sum()), \
+                n_all + d.numel()
+        if worst > 1:
+            fail(f"wire: the colour conversion on the card is {worst} from the CPU's")
+
+        # one unpack + convert pass makes no copy or wait between host and card
+        leaves = packed._transfer(host_packed)
+        torch.cuda.synchronize()
+        sdg = packed._host_out_blueprint.get_empty_like_self()
+        sdg.set_data(list(leaves))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sdg = WirePlaneUnpacker(["image", "image_cbcr"])._process(sdg)
+            YCbCrToRGBConverter("image")._process(sdg)
+        except RuntimeError as e:
+            fail(f"wire: unpack + convert synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+        # the packed and the unpacked wire deliver the same batch, bit for bit
+        a, b = packed.run(), raw.run()
+        torch.cuda.synchronize()
+        for name, v in a.items():
+            if not torch.equal(v, b[name]):
+                fail(f"wire: {name} differs between the packed and the unpacked wire")
+    finally:
+        packed.stop()
+        raw.stop()
+    emit({"phase": "wire", "card": card, "decode_bitwise_vs_unpacked_and_cpu": True,
+          "planes_checked": len(unpacked), "packed_vs_unpacked_outputs_bitwise": True,
+          "color_max_abs_diff_vs_cpu": worst, "color_differing_share": n_diff / n_all,
+          "sync_free_unpack_convert": True})
+
+
+def echo_phase(dev, card: str):
+    from accvlab_tpu_torch.bench_pipeline import build_pipeline
+
+    batch, num_cams = 8, 6
+    build = lambda: build_pipeline(batch_size=batch, device=dev, cache_dir=CACHE_DIR,  # noqa: E731
+                                   echo_factor=2)
+    pipe = build()
+    try:
+        first = [{k: v.clone() for k, v in pipe.run().items()} for _ in range(2)]
+        torch.cuda.synchronize()
+        same_source_differs = not torch.equal(first[0]["cameras.[0].image"],
+                                              first[1]["cameras.[0].image"])
+        (window_s, out), launches = count_launches(
+            lambda: timed_windows(pipe, 1, ECHO_BATCHES))
+        stats = pipe.stats()
+    finally:
+        pipe.stop()
+    if not same_source_differs:
+        fail("echo: the two replays of a host batch are equal")
+    if launches != ECHO_BATCHES:
+        fail(f"echo: draw_gaussians launched {launches} times for {ECHO_BATCHES} batches")
+    if stats["consumed"] != 2 * stats["transfers"]:
+        fail(f"echo: {stats['consumed']} batches delivered from {stats['transfers']} transfers")
+    check_outputs(out, num_cams, batch)
+
+    # mid-echo resume: state after 3 deliveries (the first replay of host
+    # batch 1), a fresh pipeline, the next batches bit for bit
+    n = 3 + RESUME_BATCHES
+    ref = build()
+    try:
+        stream = [{k: v.clone() for k, v in ref.run().items()} for _ in range(n)]
+    finally:
+        ref.stop()
+    pipe = build()
+    try:
+        for _ in range(3):
+            pipe.run()
+        state = json.loads(json.dumps(pipe.get_state()))
+    finally:
+        pipe.stop()
+    if state.get("echo") != {"factor": 2, "next": 1}:
+        fail(f"echo: unexpected mid-echo state {state}")
+    fresh = build()
+    try:
+        fresh.set_state(state)
+        for i in range(3, n):
+            got = fresh.run()
+            for k, v in got.items():
+                if not torch.equal(v, stream[i][k]):
+                    fail(f"echo: after the resume, batch {i} field {k} differs")
+    finally:
+        fresh.stop()
+    emit({"phase": "echo", "card": card, "echo_factor": 2,
+          "delivered_frames_per_s": ECHO_BATCHES * batch * num_cams / window_s[0],
+          "ms_per_delivered_batch": window_s[0] / ECHO_BATCHES * 1e3,
+          "consumed": stats["consumed"], "transfers": stats["transfers"],
+          "bytes_per_transfer": stats["bytes_per_batch"], "replays_differ": True,
+          "state": state, "resumed_batches_bitwise": RESUME_BATCHES,
+          "draw_gaussians_launches": launches})
 
 
 # --------------------------------------------------------------------- #
@@ -721,20 +931,24 @@ def train_phase(dev, card: str):
 def input_idle_phase(dev, card: str):
     from accvlab_tpu_torch.bench_pipeline import build_pipeline, measure_input_idle
 
-    pipe = build_pipeline(batch_size=8, device=dev)
-    try:
-        res, launches = count_launches(lambda: measure_input_idle(pipe, 6, n_iters=IDLE_ITERS,
-                                                                  width=64))
-        stats = pipe.stats()
-    finally:
-        pipe.stop()
     batches = 1 + 2 * IDLE_ITERS  # the first, the warm-up window, the timed window
-    if launches != batches:
-        fail(f"input_idle: draw_gaussians launched {launches} times for {batches} batches")
-    emit({"phase": "input_idle", "card": card, "t_e2e_ms": res["t_e2e_s"] * 1e3,
-          "t_comp_ms": res["t_comp_s"] * 1e3, "idle": res["idle"],
-          "input_bound_frac": stats["input_bound_frac"], "n_iters": IDLE_ITERS,
-          "draw_gaussians_launches": launches})
+    readings = {}
+    for wire in ("yuv", "frames"):
+        pipe = build_pipeline(batch_size=8, device=dev, wire=wire, cache_dir=CACHE_DIR)
+        try:
+            res, launches = count_launches(
+                lambda: measure_input_idle(pipe, 6, n_iters=IDLE_ITERS, width=64))
+            stats = pipe.stats()
+        finally:
+            pipe.stop()
+        if launches != batches:
+            fail(f"input_idle ({wire}): draw_gaussians launched {launches} times for "
+                 f"{batches} batches")
+        readings[wire] = {"t_e2e_ms": res["t_e2e_s"] * 1e3, "t_comp_ms": res["t_comp_s"] * 1e3,
+                          "idle": res["idle"], "input_bound_frac": stats["input_bound_frac"],
+                          "draw_gaussians_launches": launches}
+    emit({"phase": "input_idle", "card": card, "n_iters": IDLE_ITERS, **readings["yuv"],
+          "frames": readings["frames"]})
 
 
 def main() -> int:
@@ -745,6 +959,7 @@ def main() -> int:
     from accvlab_tpu_torch import _native_build
     from accvlab_tpu_torch.heatmap import _kernel
     from accvlab_tpu_torch.hostcopy import native as hostcopy_native
+    from accvlab_tpu_torch.pipeline import wire_native
 
     smi = nvidia_smi_line()
     dev = torch.device("cuda", 0)
@@ -754,8 +969,9 @@ def main() -> int:
           "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as ex:  # one compiler per source, together
-        libs = list(ex.map(lambda f: f(), [_kernel.library_path, hostcopy_native.library_path]))
+    builds = [_kernel.library_path, hostcopy_native.library_path, wire_native.library_path]
+    with ThreadPoolExecutor(max_workers=len(builds)) as ex:  # one compiler per source, together
+        libs = list(ex.map(lambda f: f(), builds))
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": libs,
           "compiler_seconds": _native_build.build_seconds})
 
@@ -763,6 +979,9 @@ def main() -> int:
     replaces, results, entry_launches, n_golden = kernel_phase(dev, flush)
     emit({"phase": "goldens", "bitwise_groups": n_golden})
     main_launches = main_phase(dev, card)
+    main_frames_phase(dev, card)
+    wire_phase(dev, card)
+    echo_phase(dev, card)
     train_parity_phase(dev)
     train_phase(dev, card)
     input_idle_phase(dev, card)

@@ -1,14 +1,19 @@
-"""The largest differences between the port's training path and the JAX package's.
+"""The largest differences between the port's training path and YUV wire and
+the JAX package's.
 
 Run from the repository root, on the CPU:
     JAX_PLATFORMS=cpu python3 scripts/torch_parity_report.py
 
-The tests (``tests/test_torch_models.py``) assert tolerances; this prints
-what the same comparisons measure, one JSON line, on the tests' inputs:
-the heads of a width-8 CenterNet with the same flax weights (relative to
-each head's largest magnitude), the three losses and their input gradients
-on float32 head outputs (relative), and one ``make_train_step`` step (loss
-relative, parameters absolute).
+The tests (``tests/test_torch_models.py``, ``tests/test_torch_yuv.py``)
+assert tolerances; this prints what the same comparisons measure, one JSON
+line, on the tests' inputs: the heads of a width-8 CenterNet with the same
+flax weights (relative to each head's largest magnitude), the three losses
+and their input gradients on float32 head outputs (relative), one
+``make_train_step`` step (loss relative, parameters absolute); and for the
+YUV wire the colour conversion's largest uint8 difference and differing
+share per matrix and range (against numpy and jitted XLA), the decoder's
+(against the JAX package's PIL path), and the wire slice's normalized
+images.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import optax  # noqa: E402
 import torch  # noqa: E402
 
 import test_torch_models as tm  # noqa: E402
+import test_torch_yuv as ty  # noqa: E402
 from accvlab_tpu.models import centernet as J  # noqa: E402
 from accvlab_tpu_torch.models import centernet as T  # noqa: E402
 from accvlab_tpu_torch.models.params import jax_params_of, load_jax_params  # noqa: E402
@@ -74,8 +80,45 @@ def main() -> int:
     report["train_step"] = {"loss_rel": rel(metrics_t["loss"], metrics_j["loss"]),
                             "param_abs_max": float(diffs.max()),
                             "param_abs_median": float(np.median(diffs)), "lr": tm.LR}
+    report["yuv_wire"] = yuv_wire_report()
     print(json.dumps(report), flush=True)
     return 0
+
+
+def uint8_diff(got, want) -> dict:
+    d = np.abs(np.asarray(got, np.int32) - np.asarray(want, np.int32))
+    return {"max_abs": int(d.max(initial=0)), "differing_share": float(np.mean(d > 0))}
+
+
+def yuv_wire_report() -> dict:
+    from accvlab_tpu import color as jcolor
+    from accvlab_tpu.pipeline import native_jpeg
+
+    from accvlab_tpu_torch import color as tcolor
+
+    out = {"color": {}, "decoder": {}}
+    for m in ty.MATRICES:
+        for r in ty.RANGES:
+            rng = np.random.default_rng(ty.MATRICES.index(m) * 2 + ty.RANGES.index(r))
+            y = rng.integers(0, 256, (3, 64, 96), np.uint8)
+            cbcr = rng.integers(0, 256, (3, 32, 48, 2), np.uint8)
+            got = tcolor.ycbcr420_to_rgb(torch.from_numpy(y), torch.from_numpy(cbcr), m, r)
+            xla = jax.jit(lambda a, b: jcolor.ycbcr420_to_rgb(a, b, m, r))(y, cbcr)
+            out["color"][f"{m}/{r}"] = {
+                "vs_numpy": uint8_diff(got, jcolor.ycbcr420_to_rgb(y, cbcr, m, r)),
+                "vs_xla": uint8_diff(got, np.asarray(xla))}
+    native_jpeg.available = lambda: False  # the JAX package's PIL path, as without libjpeg
+    for case, (make, kw) in ty.DECODE_CASES.items():
+        for fmt in ("rgb", "yuv420"):
+            got, want = ty.decode_both(make(), wire_format=fmt, **kw)
+            out["decoder"][f"{case}/{fmt}"] = max(
+                (uint8_diff(got[k], want[k]) for k in want), key=lambda d: d["max_abs"])
+    j = ty._outputs(ty.jax_wire_pipeline(True), 2)
+    t = ty._outputs(ty.torch_wire_pipeline(True), 2)
+    d = np.concatenate([np.abs(a[k] - b[k]).ravel() for a, b in zip(t, j)
+                        for k in a if k.endswith(".image")])
+    out["slice_image"] = {"max_abs": float(d.max()), "differing_share": float(np.mean(d > 0))}
+    return out
 
 
 if __name__ == "__main__":

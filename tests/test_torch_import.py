@@ -17,6 +17,7 @@ PORT = os.path.join(REPO, "accvlab_tpu_torch")
 SUBPACKAGES = [
     "accvlab_tpu_torch",
     "accvlab_tpu_torch.bench_pipeline",
+    "accvlab_tpu_torch.color",
     "accvlab_tpu_torch.heatmap",
     "accvlab_tpu_torch.hostcopy",
     "accvlab_tpu_torch.models",
@@ -27,7 +28,11 @@ SUBPACKAGES = [
     "accvlab_tpu_torch.ragged",
     "accvlab_tpu_torch.train_centernet_e2e",
 ]
-COPIED_CSRC = [("hostcopy/csrc/pack.cpp", "accvlab_tpu/hostcopy/csrc/pack.cpp")]
+COPIED_CSRC = [
+    ("hostcopy/csrc/pack.cpp", "accvlab_tpu/hostcopy/csrc/pack.cpp"),
+    ("pipeline/csrc/wirepack.cpp", "accvlab_tpu/pipeline/csrc/wirepack.cpp"),
+    ("pipeline/csrc/simd_bitplane.h", "accvlab_tpu/pipeline/csrc/simd_bitplane.h"),
+]
 
 
 def _port_files():

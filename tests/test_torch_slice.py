@@ -1,7 +1,8 @@
 """The headline pipeline end to end, in both packages, reduced in size.
 
-bench.py's multi-camera pipeline with raw frames (see
-``accvlab_tpu_torch/bench_pipeline.py``) at 2 cameras of 96x256, batch 2,
+bench.py's multi-camera pipeline with raw frames (``wire="frames"`` in
+``accvlab_tpu_torch/bench_pipeline.py``; the YUV wire's slice is in
+test_torch_yuv.py) at 2 cameras of 96x256, batch 2,
 out 64x176, heatmap 10x16x44, built from the same constructor arguments in
 both packages and driven through ``get_pipeline(...).run()`` on the CPU.
 
@@ -92,7 +93,7 @@ def jax_pipeline(prob):
 def torch_pipeline(prob):
     return build_pipeline(batch_size=BATCH, device="cpu", num_threads=2, hw=HW, num_cams=CAMS,
                           out_hw=OUT_HW, heatmap_hw=HM_HW, num_samples=SAMPLES,
-                          affine_prob=prob, photometric_prob=prob)
+                          affine_prob=prob, photometric_prob=prob, wire="frames")
 
 
 def _outputs(pipe, n):
