@@ -30,6 +30,26 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+IMPLEMENTATIONS = ("auto", "kernel", "torch")
+
+
+def use_kernel(implementation: str, device: torch.device) -> bool:
+    """Whether a wrapper with a hand kernel launches it on tensors of
+    ``device``: ``"auto"`` for CUDA tensors, ``"kernel"`` always (a CPU
+    tensor raises ``ValueError``), ``"torch"`` never."""
+    if implementation not in IMPLEMENTATIONS:
+        raise ValueError(
+            f"implementation must be one of {IMPLEMENTATIONS}, got {implementation!r}"
+        )
+    if implementation == "torch":
+        return False
+    if device.type == "cuda":
+        return True
+    if implementation == "kernel":
+        raise ValueError("implementation='kernel' needs CUDA tensors (the kernel has no CPU form)")
+    return False
+
+
 def device_of(value, device: DeviceLike = None) -> torch.device:
     """The device a call runs on: that of ``value`` when it is a tensor,
     else :func:`resolve_device` of ``device``."""

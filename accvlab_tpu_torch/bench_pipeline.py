@@ -36,6 +36,8 @@ from .pipeline import PipelineDefinition
 from .pipeline.inputs import (
     MultiCameraJpegProvider,
     MultiCameraSyntheticProvider,
+    SamplerBase,
+    SamplerInputCallable,
     ShuffledShardedInputCallable,
 )
 from .pipeline.processing_steps import (
@@ -105,7 +107,8 @@ def build_pipeline(batch_size: int = 8, device=None, num_threads: Optional[int] 
                    photometric_prob: float = 0.5, heatmap_implementation: str = "auto",
                    seed: int = 0, hw_out_name: Optional[str] = None, wire: str = "yuv",
                    wire_pack: bool = True, echo_factor: int = 1,
-                   cache_dir: Optional[str] = None):
+                   cache_dir: Optional[str] = None, sampler: Optional[SamplerBase] = None,
+                   sampler_iterations: int = 1024):
     """bench.py's pipeline on the port (``device`` defaults to the card).
 
     ``wire``: ``"yuv"`` (bench.py on a host without libjpeg) or ``"frames"``
@@ -113,6 +116,10 @@ def build_pipeline(batch_size: int = 8, device=None, num_threads: Optional[int] 
     planes without the plane codec. ``num_unique`` defaults to
     :data:`NUM_UNIQUE` of the wire. ``cache_dir`` keeps the encoded JPEGs in
     bench.py's cache format there (``multicam_jpeg.bench_jpegs``).
+    ``sampler`` replaces bench.py's shuffled reads with a
+    ``SamplerInputCallable`` over ``sampler`` (for example a
+    ``SequenceSampler``, drive order), built for ``sampler_iterations``
+    batches plus the prefetch ring's 2.
     """
     if wire == "dct":
         raise ValueError(
@@ -137,7 +144,11 @@ def build_pipeline(batch_size: int = 8, device=None, num_threads: Optional[int] 
         provider = MultiCameraSyntheticProvider(num_samples=num_samples, num_unique=num_unique,
                                                 hw=hw, num_cams=num_cams)
         steps = []
-    inp = ShuffledShardedInputCallable(provider, batch_size=batch_size, shuffle=True)
+    if sampler is None:
+        inp = ShuffledShardedInputCallable(provider, batch_size=batch_size, shuffle=True)
+    else:
+        inp = SamplerInputCallable(provider, sampler, max_num_iterations=sampler_iterations,
+                                   pre_fetch_queue_length=2)
     steps += headline_steps(out_hw, heatmap_hw, affine_prob=affine_prob,
                             photometric_prob=photometric_prob,
                             heatmap_implementation=heatmap_implementation,

@@ -33,25 +33,10 @@ import numpy as np
 import torch
 
 from .._device import device_of
+from .._device import use_kernel as _use_kernel
 from ..ragged import RaggedBatch
 from . import _kernel
 from .repro_exp import exp_f32
-
-_IMPLEMENTATIONS = ("auto", "kernel", "torch")
-
-
-def _use_kernel(implementation: str, device: torch.device) -> bool:
-    if implementation not in _IMPLEMENTATIONS:
-        raise ValueError(
-            f"implementation must be one of {_IMPLEMENTATIONS}, got {implementation!r}"
-        )
-    if implementation == "torch":
-        return False
-    if device.type == "cuda":
-        return True
-    if implementation == "kernel":
-        raise ValueError("implementation='kernel' needs CUDA tensors (the kernel has no CPU form)")
-    return False
 
 
 def _validate_ids_eager(ids: torch.Tensor, num_valid: int, what: str, live_mask=None):

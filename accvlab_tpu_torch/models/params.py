@@ -1,42 +1,119 @@
 """Parameters of the JAX package's flax models in the port's modules.
 
-``load_jax_params`` fills a :class:`~.centernet.CenterNetDetector` from the
-flax variables of ``accvlab_tpu.models.centernet.CenterNetDetector``, given
-as nested dicts of numpy arrays::
+``load_jax_params`` fills a :class:`~.centernet.CenterNetDetector` or a
+:class:`~.petr.PETRDetector` from the flax variables of the JAX package's
+model of the same name, given as nested dicts of numpy arrays::
 
     {"params": {"ConvBlock_0": {"Conv_0": {"kernel": (3, 3, 3, 64)},
                                 "GroupNorm_0": {"scale": (64,), "bias": (64,)}},
                 ...,
                 "head_heatmap": {"kernel": (1, 1, 128, 10), "bias": (10,)}, ...}}
 
-Conv kernels are HWIO there and OIHW here. ``jax_params_of`` is the
-inverse. No JAX is imported: the caller converts its arrays with numpy.
+Layouts: conv kernels are HWIO there and OIHW here; ``Dense`` kernels
+``(in, out)`` there and ``Linear`` weights ``(out, in)`` here; the attention's
+``DenseGeneral`` kernels ``(dim, heads, head_dim)`` (query, key, value) and
+``(heads, head_dim, dim)`` (out) with biases ``(heads, head_dim)`` are
+``Linear`` weights over ``heads * head_dim`` features here.
+``jax_params_of`` is the inverse. No JAX is imported: the caller converts its
+arrays with numpy.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from .centernet import CenterNetDetector
+from .petr import PETRDetector
 
 HWIO_TO_OIHW = (3, 2, 0, 1)
 OIHW_TO_HWIO = (2, 3, 1, 0)
 
+Model = Union[CenterNetDetector, PETRDetector]
+#: (to the port's layout, to flax's layout), both on numpy arrays
+Layout = Tuple[Callable[[np.ndarray], np.ndarray], Callable[[np.ndarray], np.ndarray]]
 
-def _leaves(model: CenterNetDetector) -> Dict[Tuple[str, ...], Tuple[torch.Tensor, bool]]:
-    """flax path -> (port parameter, is a conv kernel)."""
+SAME: Layout = (lambda a: a, lambda a: a)
+CONV: Layout = (lambda a: a.transpose(HWIO_TO_OIHW), lambda a: a.transpose(OIHW_TO_HWIO))
+DENSE: Layout = (lambda a: a.T, lambda a: a.T)
+
+
+def _heads_layouts(heads: int) -> Dict[str, Layout]:
+    """DenseGeneral layouts of one attention with ``heads`` heads."""
+    def split(a):  # (.., heads * d) -> (.., heads, d)
+        return a.reshape(*a.shape[:-1], heads, a.shape[-1] // heads)
+
+    return {
+        "qkv_kernel": (lambda a: a.reshape(a.shape[0], -1).T, lambda a: split(a.T)),
+        "qkv_bias": (lambda a: a.reshape(-1), split),
+        "out_kernel": (lambda a: a.reshape(-1, a.shape[-1]).T,
+                       lambda a: a.T.reshape(heads, -1, a.shape[0])),
+    }
+
+
+def _linear(out: dict, path: Tuple[str, ...], layer: nn.Linear) -> None:
+    out[path + ("kernel",)] = (layer.weight, DENSE)
+    out[path + ("bias",)] = (layer.bias, SAME)
+
+
+def _norm(out: dict, path: Tuple[str, ...], norm: nn.Module) -> None:
+    out[path + ("scale",)] = (norm.weight, SAME)
+    out[path + ("bias",)] = (norm.bias, SAME)
+
+
+def _centernet_leaves(model: CenterNetDetector) -> dict:
     out = {}
     for i, block in enumerate(model.blocks):
-        out[(f"ConvBlock_{i}", "Conv_0", "kernel")] = (block.conv.weight, True)
-        out[(f"ConvBlock_{i}", "GroupNorm_0", "scale")] = (block.norm.weight, False)
-        out[(f"ConvBlock_{i}", "GroupNorm_0", "bias")] = (block.norm.bias, False)
+        out[(f"ConvBlock_{i}", "Conv_0", "kernel")] = (block.conv.weight, CONV)
+        _norm(out, (f"ConvBlock_{i}", "GroupNorm_0"), block.norm)
     for name, head in model.heads().items():
-        out[(f"head_{name}", "kernel")] = (head.weight, True)
-        out[(f"head_{name}", "bias")] = (head.bias, False)
+        out[(f"head_{name}", "kernel")] = (head.weight, CONV)
+        out[(f"head_{name}", "bias")] = (head.bias, SAME)
     return out
+
+
+def _petr_leaves(model: PETRDetector) -> dict:
+    out = {}
+    for i, block in enumerate(model.backbone.blocks):
+        out[("CameraBackbone_0", f"Conv_{i}", "kernel")] = (block.conv.weight, CONV)
+        _norm(out, ("CameraBackbone_0", f"GroupNorm_{i}"), block.norm)
+    _linear(out, ("Dense_0",), model.token_proj)
+    out[("queries",)] = (model.queries, SAME)
+    if model.motion_aware:
+        out[("ref_anchors",)] = (model.ref_anchors, SAME)
+        _linear(out, ("position_encoder_hidden",), model.position_encoder_hidden)
+        _linear(out, ("position_encoder_out",), model.position_encoder_out)
+    if model.num_memory:
+        _linear(out, ("memory_proj",), model.memory_proj)
+    for i, layer in enumerate(model.layers):
+        p = (f"DecoderLayer_{i}",)
+        _norm(out, p + ("LayerNorm_0",), layer.norm0)
+        _norm(out, p + ("LayerNorm_1",), layer.norm1)
+        _linear(out, p + ("Dense_0",), layer.mlp0)
+        _linear(out, p + ("Dense_1",), layer.mlp1)
+        lay = _heads_layouts(layer.attn.heads)
+        attn = p + ("MultiHeadDotProductAttention_0",)
+        for name in ("query", "key", "value"):
+            lin = getattr(layer.attn, name)
+            out[attn + (name, "kernel")] = (lin.weight, lay["qkv_kernel"])
+            out[attn + (name, "bias")] = (lin.bias, lay["qkv_bias"])
+        out[attn + ("out", "kernel")] = (layer.attn.out.weight, lay["out_kernel"])
+        out[attn + ("out", "bias")] = (layer.attn.out.bias, SAME)
+    for name in ("boxes", "classes", "existence"):
+        _linear(out, (f"head_{name}",), getattr(model, f"head_{name}"))
+    return out
+
+
+def _leaves(model: Model) -> Dict[Tuple[str, ...], Tuple[torch.Tensor, Layout]]:
+    """flax path -> (port parameter, its layout)."""
+    if isinstance(model, PETRDetector):
+        return _petr_leaves(model)
+    if isinstance(model, CenterNetDetector):
+        return _centernet_leaves(model)
+    raise TypeError(f"no flax layout for {type(model).__name__}")
 
 
 def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -48,7 +125,11 @@ def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
     return {prefix: np.asarray(tree)}
 
 
-def load_jax_params(module: CenterNetDetector, params: dict) -> CenterNetDetector:
+def _numpy(param: torch.Tensor) -> np.ndarray:
+    return param.detach().cpu().numpy()
+
+
+def load_jax_params(module: Model, params: dict) -> Model:
     """Copy flax variables ``{"params": {...}}`` into ``module`` (in place;
     returns it). Raises ``ValueError`` on a missing, extra or mis-shaped
     leaf, before anything is copied."""
@@ -62,30 +143,25 @@ def load_jax_params(module: CenterNetDetector, params: dict) -> CenterNetDetecto
         raise ValueError(f"flax parameters do not match the module: missing {missing}, "
                          f"extra {extra}")
     arrays = {}
-    for path, (param, is_kernel) in expected.items():
-        arr = given[path]
-        if is_kernel and arr.ndim == 4:
-            arr = arr.transpose(HWIO_TO_OIHW)
-        if tuple(arr.shape) != tuple(param.shape):
+    for path, (param, (to_port, to_flax)) in expected.items():
+        want = to_flax(_numpy(param)).shape
+        if tuple(given[path].shape) != tuple(want):
             raise ValueError(f"{'/'.join(path)}: shape {given[path].shape} does not fit the "
-                             f"module's {tuple(param.shape)}")
-        arrays[path] = np.array(arr, order="C")  # a writable copy
+                             f"module's {tuple(want)}")
+        arrays[path] = np.array(to_port(given[path]), order="C")  # a writable copy
     with torch.no_grad():
         for path, (param, _) in expected.items():
             param.copy_(torch.from_numpy(arrays[path]).to(param.dtype))
     return module
 
 
-def jax_params_of(module: CenterNetDetector) -> dict:
-    """The module's parameters as flax variables of numpy arrays (HWIO
-    kernels), the inverse of :func:`load_jax_params`."""
+def jax_params_of(module: Model) -> dict:
+    """The module's parameters as flax variables of numpy arrays in flax's
+    layouts, the inverse of :func:`load_jax_params`."""
     tree: dict = {}
-    for path, (param, is_kernel) in _leaves(module).items():
-        arr = param.detach().cpu().numpy()
-        if is_kernel:
-            arr = arr.transpose(OIHW_TO_HWIO)
+    for path, (param, (_, to_flax)) in _leaves(module).items():
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = np.ascontiguousarray(arr)
+        node[path[-1]] = np.ascontiguousarray(to_flax(_numpy(param)))
     return {"params": tree}

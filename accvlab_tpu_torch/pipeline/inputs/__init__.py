@@ -1,9 +1,12 @@
 """Input sources for the pipeline framework (port of ``accvlab_tpu.pipeline.inputs``;
-the samplers and the elastic callable are later work, see ROADMAP.md)."""
+``ElasticShardedInputCallable`` is later work, see ROADMAP.md)."""
 
 from .base import CallableBase, DataProvider, IterableBase, SampleInfo, SamplerBase
 from .multicam_jpeg import MultiCameraJpegProvider
 from .multicam_synthetic import MultiCameraSyntheticProvider
+from .sampler_input_callable import SamplerInputCallable
+from .sampler_input_iterable import SamplerInputIterable
+from .sequence_sampler import SequenceSampler
 from .shuffled_sharded_input_callable import ShuffledShardedInputCallable
 
 __all__ = [
@@ -14,5 +17,8 @@ __all__ = [
     "MultiCameraSyntheticProvider",
     "SampleInfo",
     "SamplerBase",
+    "SamplerInputCallable",
+    "SamplerInputIterable",
+    "SequenceSampler",
     "ShuffledShardedInputCallable",
 ]

@@ -1,7 +1,7 @@
 """Non-uniform (ragged) batching: PyTorch port of ``accvlab_tpu.ragged``.
 
-Same public API, except auction matching (``matching.py``), which is not
-ported yet.
+Same public API. Auction matching runs on a hand-written CUDA kernel on the
+card (``matching.py``, ``csrc/auction_matching.cu``).
 """
 
 from .ragged_batch import RaggedBatch, SIZE_DTYPE
@@ -30,12 +30,15 @@ from .processing import (
     combine_data,
     get_indices_from_mask,
 )
+from .matching import auction_matching, batched_auction_matching
 
 __all__ = [
     "RaggedBatch",
     "SIZE_DTYPE",
     "apply_mask_to_tensor",
+    "auction_matching",
     "average_over_targets",
+    "batched_auction_matching",
     "batched_bool_indexing",
     "batched_bool_indexing_write",
     "batched_index_mapping",

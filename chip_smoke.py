@@ -5,9 +5,9 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each printing one JSON line (a failing phase exits non-zero):
 
 1. header  — card name and power limit (nvidia-smi), torch and CUDA versions;
-2. build   — the host packer and the wire encoder (g++) and the CUDA
-             rasterizer (nvcc, sm_90a), compiled in parallel into
-             accvlab_tpu_torch/_build/;
+2. build   — the host packer and the wire encoder (g++), the CUDA
+             rasterizer and the CUDA auction (nvcc, sm_90a), compiled in
+             parallel into accvlab_tpu_torch/_build/;
 3. kernels — the rasterizer through each entry point (draw_heatmap_batched,
              its classwise form, draw_heatmap, draw_gaussians), exact and
              fast exp, at the main path's shapes and the reference headline
@@ -58,10 +58,32 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
 10. input_idle — bench_pipeline.measure_input_idle(pipe, 6, n_iters=50,
              width=64) on the YUV wire and on raw frames: t_e2e, t_comp,
              idle and the pipeline's input_bound_frac of each;
-11. the {"kernels": [...]} line, the nvidia-smi line, and last the result
+11. petr_parity — the full-width motion-aware streaming PETR (128 queries,
+             64 memory slots, dim 128, 3 layers) with the same weights
+             (numpy arrays through load_jax_params) on the card and on the
+             CPU: forward outputs, loss, the gradients of one step and the
+             propagated (memory, memory_ref) within PETR_TOL;
+12. petr   — train_petr_e2e's streaming loop at that width, fed in drive
+             order by the YUV-wire pipeline (SequenceSampler, 160 drives of
+             40 frames; 8 x 6 cameras of 256x704): 10 steps of the example's
+             loop (a loss read back per step), 10 fed steps timed with CUDA
+             events, one step under the sync check, 10 steps on a cached
+             batch; every loss finite, memory_ref non-zero after step 1,
+             peak memory, and the example's evaluation (decode_detections_3d,
+             centre-distance mAP on 0.5/1/2/4 m) finite in [0, 1];
+13. matching — the CUDA auction kernel against its plain version, bitwise in
+             col_of_row, rounds and both compacted RaggedBatches, on (a)
+             examples/batched_loss_computation.py's data and cost (8 x 48 x
+             300), (b) the petr phase's shape (8 x 32 x 192, its last step's
+             outputs as test data) and (c) the edge cases
+             (matching_edge_cases); the gap to scipy's Hungarian optimum
+             on (a) and (b), held within R * eps; rounds per sample; kernel
+             and plain ms (medians of 50 and 10) beside the bound; scipy's
+             host ms; one call under the sync check;
+14. the {"kernels": [...]} line, the nvidia-smi line, and last the result
    line {"ok": true, "device": {...}}.
 
-The pipeline phases (main, main_frames, echo, train, input_idle) each count
+The pipeline phases (main, main_frames, echo, train, input_idle, petr) each count
 the rasterizer's launches from 0 and fail unless it ran once per delivered
 pipeline batch. The encoded JPEGs are kept in build/bench_cache (bench.py's
 cache format) for the phases after the first.
@@ -99,6 +121,20 @@ TRAIN_CACHED_STEPS = 30
 IDLE_ITERS = 50
 ECHO_BATCHES = 100
 RESUME_BATCHES = 3
+PETR_FRESH_STEPS = 10
+PETR_TIMED_STEPS = 10
+PETR_CACHED_STEPS = 10
+# the full-width PETR, card against CPU: bf16 attention and MLPs (a bf16
+# rounding is 2^-8 of a value; the two sides sum the products in different
+# orders). Outputs and memory relative to the largest magnitude of each
+# tensor; gradients as the norm of the difference over the norm of the CPU's
+# (the box L1 term's slope flips sign where a prediction lies within
+# rounding of its target, which moves single gradient entries by their
+# whole size); the propagated memory compared on the queries both sides
+# chose (topk_gap: how far below the other side's cut a query chosen by one
+# side only may score)
+PETR_TOL = {"loss": 2e-2, "outputs": 3e-2, "grads": 1e-1, "grad_cosine": 0.99,
+            "memory": 3e-2, "memory_ref": 3e-2, "topk_gap": 1e-2}
 # the YUV wire's planes of one batch before the codec: 48 Y planes of 256x704
 # and 48 CbCr planes of 128x352x2
 UNPACKED_PLANE_BYTES = 48 * (256 * 704 + 128 * 352 * 2)
@@ -110,6 +146,7 @@ CACHE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "b
 TRAIN_TOL = {"loss": 2e-2, "heads": 3e-2, "grads": 1e-1, "grad_cosine": 0.99}
 GOLDENS = os.path.join("tests", "data", "goldens", "heatmap_goldens.npz")
 SOURCE = "accvlab_tpu_torch/heatmap/csrc/draw_heatmap.cu"
+AUCTION_SOURCE = "accvlab_tpu_torch/ragged/csrc/auction_matching.cu"
 
 
 def emit(obj) -> None:
@@ -951,6 +988,401 @@ def input_idle_phase(dev, card: str):
           "frames": readings["frames"]})
 
 
+# --------------------------------------------------------------------- #
+# StreamPETR and matching                                               #
+# --------------------------------------------------------------------- #
+
+
+def stream_petr_model():
+    """The full-width motion-aware streaming PETR of the ``petr`` phase:
+    128 queries, 64 memory slots, dim 128, 3 layers, 4 heads, 10 classes."""
+    from accvlab_tpu_torch.models.petr import PETRDetector
+
+    return PETRDetector(num_memory=64, motion_aware=True)
+
+
+def petr_parity_inputs(seed: int = 0):
+    """numpy inputs of the parity step: make_petr_example_batch's draws (2
+    samples of 6 cameras of 64x176, 32 boxes, matches over all 192 slots)
+    plus a memory, its reference points and the example's ego motion."""
+    rng = np.random.default_rng(seed)
+    memory = (rng.normal(size=(2, 64, 128)) * 0.1).astype(np.float32)
+    memory_ref = rng.normal(size=(2, 64, 3)).astype(np.float32)
+    ego = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    ego[:, 0, 3] = 0.5
+    return memory, memory_ref, ego
+
+
+def topk_agreement(out_a, out_b, k: int):
+    """Propagation of two runs of one model: the top-k query sets by
+    existence score, and the propagated features and centres of the queries
+    both runs chose. Returns ``(queries chosen by one run only, the largest
+    score gap of such a query to the other run's k-th score, max relative
+    error of the common features, of the common centres)``; a query near
+    the cut may fall on either side when the scores differ by rounding."""
+    from accvlab_tpu_torch.models.petr import _select_topk_queries, propagate_queries_with_motion
+
+    res = []
+    for out in (out_a, out_b):
+        out = {k_: v.detach().cpu() for k_, v in out.items()}
+        feats, centers = propagate_queries_with_motion(out, k)
+        _, idx, top = _select_topk_queries(out, k)
+        res.append((feats, centers, idx, top, torch.sigmoid(out["existence"])))
+    only, gap, feat_err, cen_err = 0, 0.0, 0.0, 0.0
+    for s in range(res[0][2].shape[0]):
+        pos = [{int(q): j for j, q in enumerate(r[2][s])} for r in res]
+        for side in (0, 1):
+            for q in set(pos[side]) - set(pos[1 - side]):
+                only += 1
+                gap = max(gap, float(res[1 - side][3][s, -1] - res[1 - side][4][s, q]))
+        common = sorted(set(pos[0]) & set(pos[1]))
+        ia = torch.tensor([pos[0][q] for q in common])
+        ib = torch.tensor([pos[1][q] for q in common])
+        feat_err = max(feat_err, rel_to_max(res[0][0][s, ia], res[1][0][s, ib]))
+        cen_err = max(cen_err, rel_to_max(res[0][1][s, ia], res[1][1][s, ib]))
+    return only, gap, feat_err, cen_err
+
+
+def petr_parity_phase(dev):
+    """Card against CPU for the full-width PETR with the same weights (numpy
+    arrays through load_jax_params) and batch: forward outputs, loss, the
+    gradients of one step and the propagated (memory, memory_ref)."""
+    from accvlab_tpu_torch.models.params import jax_params_of, load_jax_params
+    from accvlab_tpu_torch.models.petr import (_batch_loss, init_params,
+                                               make_petr_example_batch)
+
+    weights = jax_params_of(init_params(stream_petr_model(), torch.Generator().manual_seed(0)))
+    memory, memory_ref, ego = petr_parity_inputs()
+    res = {}
+    for name, d in (("cpu", torch.device("cpu")), ("gpu", dev)):
+        model = load_jax_params(stream_petr_model(), weights).to(d)
+        batch = make_petr_example_batch(batch_size=2, num_cams=6, hw=(64, 176), max_gt=32,
+                                        num_queries=192, device=d)
+        t = lambda a: torch.from_numpy(a).to(d)  # noqa: E731
+        out = model(batch["images"], t(memory), t(memory_ref), t(ego))
+        loss = _batch_loss(out, batch)["loss"]
+        loss.backward()
+        res[name] = (loss.detach(), out, {n: p.grad for n, p in model.named_parameters()})
+    loss_err = abs(float(res["gpu"][0]) - float(res["cpu"][0])) / abs(float(res["cpu"][0]))
+    out_err = max(rel_to_max(res["gpu"][1][k], res["cpu"][1][k]) for k in res["cpu"][1])
+    grad_err, grad_max_err, cosine, worst, key_bias = 0.0, 0.0, 1.0, None, 0.0
+    for n, g_cpu in res["cpu"][2].items():
+        g_gpu = res["gpu"][2][n].cpu()
+        if n.endswith("attn.key.bias"):
+            # the softmax is invariant to a shift shared by all keys of a
+            # query, so this gradient is zero up to rounding on both sides
+            key_bias = max(key_bias, float(g_gpu.abs().max()), float(g_cpu.abs().max()))
+            continue
+        grad_max_err = max(grad_max_err, rel_to_max(g_gpu, g_cpu))
+        err = float((g_gpu.double() - g_cpu.double()).norm() / g_cpu.double().norm().clamp(
+            min=1e-30))
+        if err > grad_err:
+            grad_err, worst = err, n
+        cosine = min(cosine, float(torch.nn.functional.cosine_similarity(
+            g_gpu.double().flatten(), g_cpu.double().flatten(), dim=0)))
+    only, gap, feat_err, cen_err = topk_agreement(res["gpu"][1], res["cpu"][1], 64)
+    errors = {"loss": loss_err, "outputs": out_err, "grads": grad_err, "grad_cosine": cosine,
+              "memory": feat_err, "memory_ref": cen_err, "topk_gap": gap}
+    reading = {"phase": "petr_parity", "model": "PETRDetector(num_memory=64, motion_aware=True) "
+               "(128 queries, dim 128, 3 layers), 2 x 6 cameras of 64x176, 32 boxes",
+               "errors": errors, "tolerance": PETR_TOL, "worst_grad": worst,
+               "grads_max_entry_rel_to_max": grad_max_err,
+               "key_bias_grad_max_abs": key_bias, "topk_queries_on_one_side_only": only,
+               "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+               "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
+    for k, tol in PETR_TOL.items():
+        bad = errors[k] < tol if k == "grad_cosine" else errors[k] > tol
+        if bad:
+            emit(reading)
+            fail(f"petr_parity: {k} {errors[k]} against the CPU (tolerance {tol})")
+    emit(reading)
+
+
+def petr_phase(dev, card: str):
+    """The full-width motion-aware streaming loop of train_petr_e2e fed by the
+    YUV-wire pipeline in drive order."""
+    from accvlab_tpu_torch.train_petr_e2e import (StreamTrainer, build_stream_pipeline,
+                                                  run_stream_training)
+
+    batches = PETR_FRESH_STEPS + PETR_TIMED_STEPS + 1
+    pipe = build_stream_pipeline(batch_size=8, device=dev, cache_dir=CACHE_DIR,
+                                 sampler_iterations=batches)
+    trainer = StreamTrainer(stream_petr_model(), seed=0)
+
+    def fed():
+        # the example's loop, one loss read back per step (the first step
+        # builds the model and warms the libraries up: not timed)
+        _, losses = run_stream_training(pipe, 1, trainer)
+        ref_after_1 = float(trainer.memory_ref.abs().sum())
+        t0 = time.perf_counter()
+        _, more = run_stream_training(pipe, PETR_FRESH_STEPS - 1, trainer)
+        wall = (time.perf_counter() - t0) / (PETR_FRESH_STEPS - 1)
+        # the same, timed per step on the card
+        events, timed, host = [], [], time.perf_counter()
+        for _ in range(PETR_TIMED_STEPS):
+            batch = trainer.make_batch(pipe.run())
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            metrics = trainer.step(batch)
+            e1.record()
+            events.append((e0, e1))
+            timed.append(float(metrics["loss"]))
+        host = (time.perf_counter() - host) / PETR_TIMED_STEPS
+        return losses + more + timed, ref_after_1, wall, events, host
+
+    torch.cuda.reset_peak_memory_stats()
+    (losses, ref_after_1, wall, events, fed_host_s), launches = count_launches(fed)
+    fed_ms = [a.elapsed_time(b) for a, b in events]
+    if launches != PETR_FRESH_STEPS + PETR_TIMED_STEPS:
+        fail(f"petr: draw_gaussians launched {launches} times for "
+             f"{PETR_FRESH_STEPS + PETR_TIMED_STEPS} batches")
+    if not all(np.isfinite(losses)):
+        fail(f"petr: non-finite loss: {losses}")
+    if not ref_after_1 > 0.0:
+        fail("petr: memory_ref is zero after the first step")
+    images = trainer.batch["images"]
+    if tuple(images.shape) != (8, 6, 256, 704, 3) or images.dtype != torch.float32:
+        fail(f"petr: images of shape {tuple(images.shape)} {images.dtype}")
+
+    # one step under the sync check: adapting the batch, labels, forward,
+    # loss, backward, AdamW and the propagation
+    out = pipe.run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.step(trainer.make_batch(out))
+    except RuntimeError as e:
+        fail(f"petr: the step synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    pipe.stop()
+
+    cached = trainer.batch
+    cached_events = []
+    for _ in range(PETR_CACHED_STEPS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        trainer.step(cached)
+        e1.record()
+        cached_events.append((e0, e1))
+    torch.cuda.synchronize()
+    cached_ms = [a.elapsed_time(b) for a, b in cached_events]
+    peak_bytes = torch.cuda.max_memory_allocated()
+    res = trainer.evaluate()
+    if not (np.isfinite(res["mAP"]) and 0.0 <= res["mAP"] <= 1.0):
+        fail(f"petr: mAP {res['mAP']} is not a finite value in [0, 1]")
+    emit({
+        "phase": "petr", "card": card,
+        "config": "PETRDetector(num_memory=64, motion_aware=True): 128 queries + 64 memory, dim "
+                  "128, 3 layers, 4 heads, 10 classes; 8 x 6 cams x 256x704 from the YUV wire in "
+                  "drive order (SequenceSampler, 160 drives x 40 frames); AdamW lr 2e-4 wd 1e-4; "
+                  "max_gt 32",
+        "losses": losses, "fed_step_device_ms": float(np.median(fed_ms)),
+        "fed_step_device_ms_all": fed_ms, "fed_step_host_ms": fed_host_s * 1e3,
+        "fed_loop_ms_per_step": wall * 1e3,
+        "cached_step_device_ms": float(np.median(cached_ms)), "cached_step_device_ms_all": cached_ms,
+        "peak_memory_bytes": peak_bytes, "memory_ref_abs_sum_after_step_1": ref_after_1,
+        "mAP": res["mAP"], "mAP_by_threshold": {k: v for k, v in res.items() if k.startswith("mAP@")},
+        "draw_gaussians_launches": launches, "sync_free_step": True,
+    })
+    return trainer
+
+
+def example_matching_cost(dev, seed: int = 0):
+    """examples/batched_loss_computation.py's data (make_data: 8 samples, 48
+    GT rows sized {16, 32, 48}, 300 predictions, 10 classes, in its draw
+    order) and its cost class_cost + iou_cost, oriented (B, gt, pred) as its
+    device_matching_comparison does. Returns (cost, num_valid) on ``dev``."""
+    rng = np.random.default_rng(seed)
+    b, max_gt, num_pred, ncls = 8, 48, 300, 10
+    sizes = rng.choice([16, 32, 48], size=(b,)).astype(np.int32)
+    xy = rng.uniform(0, 500, (b, max_gt, 2))
+    wh = rng.uniform(20, 120, (b, max_gt, 2))
+    xy_p = rng.uniform(0, 500, (b, num_pred, 2))
+    wh_p = rng.uniform(20, 120, (b, num_pred, 2))
+    classes = rng.integers(0, ncls, (b, max_gt)).astype(np.float32)
+    rng.uniform(0.5, 1.5, (b, max_gt))  # weights_gt: drawn, unused here
+    logits = rng.normal(size=(b, num_pred, ncls)).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    gt = t(np.concatenate([xy, xy + wh], 2).astype(np.float32))[:, None, :, :]
+    pr = t(np.concatenate([xy_p, xy_p + wh_p], 2).astype(np.float32))[:, :, None, :]
+    x1, y1 = torch.maximum(gt[..., 0], pr[..., 0]), torch.maximum(gt[..., 1], pr[..., 1])
+    x2, y2 = torch.minimum(gt[..., 2], pr[..., 2]), torch.minimum(gt[..., 3], pr[..., 3])
+    inter = torch.clamp(x2 - x1, min=0) * torch.clamp(y2 - y1, min=0)
+    area_g = (gt[..., 2] - gt[..., 0]) * (gt[..., 3] - gt[..., 1])
+    area_p = (pr[..., 2] - pr[..., 0]) * (pr[..., 3] - pr[..., 1])
+    iou_cost = -(inter / torch.clamp(area_g + area_p - inter, min=1e-6))  # (B, pred, gt)
+    probs = torch.softmax(t(logits), dim=-1)
+    idx = t(classes).to(torch.int64)[:, None, :].expand(b, num_pred, max_gt)
+    class_cost = -torch.gather(probs, 2, idx)
+    return (class_cost + iou_cost).transpose(1, 2).contiguous(), t(sizes)
+
+
+def petr_matching_cost(trainer):
+    """The petr phase's shape (8, 32, 192) as test data: from the last step's
+    outputs, -softmax(logits)[gt class] + L1(boxes3d, gt boxes)."""
+    batch = trainer.batch
+    with torch.no_grad():
+        out = trainer.model(batch["images"], trainer.eval_memory, trainer.eval_memory_ref,
+                            batch["ego_transform"])
+    probs = torch.softmax(out["logits"], dim=-1)  # (B, Q, C)
+    cls = batch["gt_classes"].tensor.to(torch.int64)  # (B, T)
+    b, q, _ = probs.shape
+    class_cost = -torch.gather(probs, 2, cls[:, None, :].expand(b, q, cls.shape[1]))
+    l1 = (out["boxes3d"][:, :, None, :] - batch["gt_boxes"].tensor[:, None, :, :]).abs().sum(-1)
+    cost = (class_cost + l1).transpose(1, 2).contiguous()  # (B, T, Q)
+    return cost, batch["gt_boxes"].sample_sizes.to(torch.int32)
+
+
+def matching_edge_cases(dev):
+    """(name, cost, num_valid, max_iters, eps) at the auction's edges (eps
+    None: the default, from the cost's span)."""
+    rng = np.random.default_rng(5)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return [
+        ("c1", t(rng.normal(size=(3, 1, 1)).astype(np.float32)), t(np.array([1, 0, 1], np.int32)),
+         40, None),
+        ("no_valid_rows", t(rng.normal(size=(2, 5, 9)).astype(np.float32)),
+         t(np.zeros(2, np.int32)), 20000, None),
+        ("integer_ties", t(rng.integers(0, 3, (4, 20, 25)).astype(np.float32)),
+         t(np.array([20, 5, 0, 13], np.int32)), 20000, None),
+        ("unconverged", t(rng.normal(size=(2, 6, 8)).astype(np.float32)),
+         t(np.array([6, 4], np.int32)), 1, None),
+        ("r_eq_c", t(rng.uniform(0, 10, (4, 16, 16)).astype(np.float32)),
+         t(np.array([16, 16, 7, 1], np.int32)), 20000, None),
+        ("cost_through_l2", t(rng.uniform(0, 1, (2, 300, 400)).astype(np.float32)),
+         t(np.array([300, 150], np.int32)), 20000, None),
+        # a diverging loss: NaN entries and an all-NaN valid row. argmax order
+        # puts a NaN first, and a NaN bid holds its column with no winner; with
+        # a fixed eps the other rows are still assigned, while the default eps
+        # is NaN (the span of a cost with a NaN) and no row ever is
+        ("nan_costs", t(nan_costs(rng)), t(np.array([24, 24, 10], np.int32)), 60, 0.02),
+        ("nan_costs_default_eps", t(nan_costs(rng)), t(np.array([24, 24, 10], np.int32)), 20,
+         None),
+    ]
+
+
+def nan_costs(rng):
+    cost = rng.uniform(0, 1, (3, 24, 64)).astype(np.float32)
+    cost[rng.uniform(size=cost.shape) < 0.005] = np.nan
+    cost[1, 3] = np.nan
+    return cost
+
+
+def matching_agrees(cost, nv, max_iters: int, eps=None, batched=None):
+    """Kernel against the plain version: col_of_row, rounds and bids
+    bitwise, and ``batched`` (the entry point's two RaggedBatches on the
+    kernel; made here when None) equal to the plain columns compacted.
+    Returns (agrees, max |col_of_row difference|, the kernel's (col_of_row,
+    rounds, bids))."""
+    from accvlab_tpu_torch.ragged.matching import (_compact, auction_assignment,
+                                                   batched_auction_matching)
+
+    got = auction_assignment(cost, nv, eps, max_iters, "kernel")
+    want = auction_assignment(cost, nv, eps, max_iters, "torch")
+    if batched is None:
+        batched = batched_auction_matching(cost, nv, eps, max_iters, implementation="kernel")
+    rows, cols, sizes = _compact(want[0], nv)
+    torch.cuda.synchronize()
+    err = float((got[0] - want[0]).abs().max()) if got[0].numel() else 0.0
+    same = all(torch.equal(a, b) for a, b in zip(got, want)) and all(
+        torch.equal(rb.tensor, t) and torch.equal(rb.sample_sizes, sizes)
+        for rb, t in zip(batched, (rows, cols)))
+    return same, err, got
+
+
+def matching_phase(dev, flush, card: str, trainer):
+    from scipy.optimize import linear_sum_assignment
+
+    from accvlab_tpu_torch.ragged import _auction_kernel, batched_auction_matching
+    from accvlab_tpu_torch.ragged.matching import _eps_per_sample, auction_assignment, auction_plain
+
+    cases = {"example_48x300": example_matching_cost(dev),
+             "petr_32x192": petr_matching_cost(trainer)}
+    edges = matching_edge_cases(dev)
+    # the entry point's own launches: one batched_auction_matching per case;
+    # their outputs are the ones checked below
+    torch.cuda.synchronize()
+    _auction_kernel.reset_launch_counts()
+    drive = {name: batched_auction_matching(cost, nv) for name, (cost, nv) in cases.items()}
+    for name, cost, nv, iters, eps in edges:
+        drive[name] = batched_auction_matching(cost, nv, eps, iters)
+    torch.cuda.synchronize()
+    launches = _auction_kernel.LAUNCHES["batched_auction_matching"]
+    if launches != len(cases) + len(edges):
+        fail(f"matching: the kernel launched {launches} times for {len(cases) + len(edges)} calls")
+
+    for name, cost, nv, iters, eps in edges:
+        if not matching_agrees(cost, nv, iters, eps, drive[name])[0]:
+            fail(f"matching: edge case {name}: the kernel differs from the plain version")
+    readings = {}
+    for name, (cost, nv) in cases.items():
+        same, err, (cols, rounds, bids) = matching_agrees(cost, nv, 20000, None, drive[name])
+        if not same:
+            fail(f"matching: {name}: the kernel differs from the plain version")
+        eps = _eps_per_sample(cost, None)
+        # the kernel alone (eps made beforehand), and the entry point with its
+        # eps reduction
+        ms = device_ms(lambda: _auction_kernel.launch_auction(cost, nv, eps, 20000), N_TIMED,
+                       flush)
+        entry_ms = device_ms(lambda: auction_assignment(cost, nv, implementation="kernel"),
+                             N_TIMED, flush)
+        plain_ms = device_ms(lambda: auction_plain(cost, nv, eps, 20000), N_TIMED_PLAIN, flush)
+        b, r, c = cost.shape
+        # what these inputs need: the valid rows of the cost, nv and eps read
+        # once; col_of_row, rounds and bids written once; one subtraction per
+        # cost entry a bid reads (a bid reads its row's C entries)
+        valid_rows = int(nv.clamp(0, r).sum())
+        nbytes = valid_rows * c * 4 + b * (4 + 4) + b * r * 4 + b * (4 + 4)
+        ops = float(bids.sum()) * c
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOP_PER_S * 1e3
+        # scipy's Hungarian on the host, for the reader, and the gap to it
+        host_cost, host_nv, host_cols = cost.cpu().numpy(), nv.cpu().numpy(), cols.cpu().numpy()
+        host_eps = eps.cpu().numpy()
+        t0 = time.perf_counter()
+        opts = [linear_sum_assignment(host_cost[s][:int(host_nv[s])]) for s in range(b)]
+        scipy_ms = (time.perf_counter() - t0) * 1e3
+        worst_gap, worst_bound = 0.0, 0.0
+        for s, (ri, ci) in enumerate(opts):
+            n = int(host_nv[s])
+            if n == 0:
+                continue
+            mine = float(host_cost[s][np.arange(n), host_cols[s, :n]].astype(np.float64).sum())
+            opt = float(host_cost[s][ri, ci].astype(np.float64).sum())
+            if len(set(host_cols[s, :n].tolist())) != n or (host_cols[s, :n] < 0).any():
+                fail(f"matching: {name} sample {s} is not a full one-to-one assignment")
+            bound = n * float(host_eps[s])
+            if mine - opt > bound + 1e-6 * abs(opt):
+                fail(f"matching: {name} sample {s}: cost {mine} exceeds the optimum {opt} by more "
+                     f"than R * eps = {bound}")
+            worst_gap = max(worst_gap, (mine - opt) / max(abs(opt), 1e-6))
+            worst_bound = max(worst_bound, bound / max(abs(opt), 1e-6))
+        readings[name] = dict(
+            shape=[b, r, c], rounds=rounds.cpu().tolist(), bids=bids.cpu().tolist(), ms=ms,
+            entry_ms=entry_ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=nbytes,
+            operations=ops, scipy_host_ms=scipy_ms, gap_to_hungarian=worst_gap,
+            gap_bound_r_eps=worst_bound, max_abs_err=err)
+
+    # one call on card tensors makes no copy or wait between host and card
+    cost, nv = cases["example_48x300"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batched_auction_matching(cost, nv, implementation="kernel")
+    except RuntimeError as e:
+        fail(f"matching: the kernel path synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    emit({"phase": "matching", "card": card, "cases": readings,
+          "edge_cases": [c[0] for c in edges],
+          "kernel_vs_plain": "bitwise (col_of_row, rounds, bids, both RaggedBatches)",
+          "entry_launches": launches, "sync_free_call": True})
+    return readings, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -960,6 +1392,7 @@ def main() -> int:
     from accvlab_tpu_torch.heatmap import _kernel
     from accvlab_tpu_torch.hostcopy import native as hostcopy_native
     from accvlab_tpu_torch.pipeline import wire_native
+    from accvlab_tpu_torch.ragged import _auction_kernel
 
     smi = nvidia_smi_line()
     dev = torch.device("cuda", 0)
@@ -969,7 +1402,8 @@ def main() -> int:
           "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    builds = [_kernel.library_path, hostcopy_native.library_path, wire_native.library_path]
+    builds = [_kernel.library_path, _auction_kernel.library_path, hostcopy_native.library_path,
+              wire_native.library_path]
     with ThreadPoolExecutor(max_workers=len(builds)) as ex:  # one compiler per source, together
         libs = list(ex.map(lambda f: f(), builds))
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": libs,
@@ -985,6 +1419,9 @@ def main() -> int:
     train_parity_phase(dev)
     train_phase(dev, card)
     input_idle_phase(dev, card)
+    petr_parity_phase(dev)
+    trainer = petr_phase(dev, card)
+    matching, matching_launches = matching_phase(dev, flush, card, trainer)
 
     kernels = []
     for k in KINDS:
@@ -1000,6 +1437,19 @@ def main() -> int:
             "exact_bound_ms": rx["bound_ms"], "exact_entry_ms": rx["entry_ms"],
             "launches_from": "main path" if k == "gaussians" else "entry-point drive",
         })
+    m = matching["example_48x300"]
+    kernels.append({
+        "name": "batched_auction_matching", "route": "cuda", "source": AUCTION_SOURCE,
+        "replaces": "accvlab_tpu/ragged/matching.py:29 (auction_matching under vmap in "
+                    "batched_auction_matching, an XLA while_loop; no Pallas kernel)",
+        "launches": matching_launches,
+        "max_abs_err": max(x["max_abs_err"] for x in matching.values()), "ms": m["ms"],
+        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+        "library_ms": None, "entry_ms": m["entry_ms"], "rounds": m["rounds"], "bids": m["bids"],
+        "shape": m["shape"],
+        "petr_shape_ms": matching["petr_32x192"]["ms"],
+        "launches_from": "matching phase (entry-point drive)",
+    })
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,7 @@ SUBPACKAGES = [
     "accvlab_tpu_torch.pipeline.processing_steps",
     "accvlab_tpu_torch.ragged",
     "accvlab_tpu_torch.train_centernet_e2e",
+    "accvlab_tpu_torch.train_petr_e2e",
 ]
 COPIED_CSRC = [
     ("hostcopy/csrc/pack.cpp", "accvlab_tpu/hostcopy/csrc/pack.cpp"),
@@ -101,7 +102,8 @@ def test_copied_csrc_is_byte_identical(copy, original):
 def _entry_points():
     from accvlab_tpu_torch.heatmap import draw_gaussians, draw_heatmap, draw_heatmap_batched
     from accvlab_tpu_torch.hostcopy import start_copy
-    from accvlab_tpu_torch.ragged import RaggedBatch
+    from accvlab_tpu_torch.models import make_petr_example_batch
+    from accvlab_tpu_torch.ragged import RaggedBatch, auction_matching, batched_auction_matching
 
     z = np.zeros
     rb = RaggedBatch(z((1, 1, 2), np.int32), sample_sizes=np.ones(1, np.int32))
@@ -117,20 +119,30 @@ def _entry_points():
         "start_copy": lambda **kw: start_copy([z(3, np.float32)], use_background_thread=False,
                                               **kw).get(),
         "get_pipeline": lambda **kw: _tiny_pipeline(**kw),
+        "auction_matching": lambda **kw: auction_matching(z((2, 3), np.float32), **kw),
+        "batched_auction_matching": lambda **kw: batched_auction_matching(
+            z((1, 2, 3), np.float32), np.ones(1, np.int32), **kw),
+        "make_petr_example_batch": lambda **kw: make_petr_example_batch(hw=(8, 8), **kw),
+        "build_stream_pipeline": lambda **kw: _tiny_pipeline(stream=True, **kw),
     }
 
 
-def _tiny_pipeline(**kw):
+def _tiny_pipeline(stream=False, **kw):
     from accvlab_tpu_torch.bench_pipeline import build_pipeline
+    from accvlab_tpu_torch.train_petr_e2e import build_stream_pipeline
 
-    p = build_pipeline(batch_size=1, num_threads=1, hw=(16, 32), num_cams=1, out_hw=(8, 16),
-                       heatmap_hw=(4, 8), num_samples=2, **kw)
+    size = dict(batch_size=1, num_threads=1, hw=(16, 32), num_cams=1, out_hw=(8, 16),
+                heatmap_hw=(4, 8))
+    p = (build_stream_pipeline(num_drives=2, drive_length=1, sampler_iterations=1, **size, **kw)
+         if stream else build_pipeline(num_samples=2, **size, **kw))
     p.stop()
     return p
 
 
 @pytest.mark.parametrize("name", ["draw_heatmap", "draw_heatmap_batched", "draw_gaussians",
-                                  "start_copy", "get_pipeline"])
+                                  "start_copy", "get_pipeline", "auction_matching",
+                                  "batched_auction_matching", "make_petr_example_batch",
+                                  "build_stream_pipeline"])
 def test_entry_points_default_to_cuda(name):
     fn = _entry_points()[name]
     if torch.cuda.is_available():
