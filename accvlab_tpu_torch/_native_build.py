@@ -1,6 +1,7 @@
 """Lazy builds of the port's native code into ``accvlab_tpu_torch/_build/``.
 
 * host C++ (``*.cpp``): ``g++ -O3 -std=c++17 -fPIC -march=native -shared``;
+  the JPEG decoder links libjpeg (:func:`libjpeg_link`);
 * CUDA (``*.cu``): ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
   -Xcompiler -fPIC`` into a shared library with a plain C interface, loaded
   with ``ctypes`` by the caller.
@@ -81,9 +82,60 @@ def _build(cmd_prefix: List[str], src: str, stem: str, flags: List[str],
     return lib_path
 
 
-def build_host_lib(src: str, stem: str, link_args: Optional[List[str]] = None) -> str:
+def build_host_lib(src: str, stem: str, link_args: Optional[List[str]] = None,
+                   extra_flags: Optional[List[str]] = None) -> str:
     """Compile host C++ ``src`` into ``_build/<stem>-<hash>.so``; returns the path."""
-    return _build(["g++"], src, stem, CXX_FLAGS + ["-shared"], list(link_args or []))
+    return _build(["g++"], src, stem, CXX_FLAGS + ["-shared"] + list(extra_flags or []),
+                  list(link_args or []))
+
+
+def _ldconfig_libjpeg62() -> Optional[str]:
+    """The path ``ldconfig -p`` lists for ``libjpeg.so.62``, or None."""
+    try:
+        res = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True)
+    except OSError:
+        return None
+    for line in res.stdout.splitlines():
+        name, _, path = line.strip().partition(" => ")
+        if name.split(" ")[0] == "libjpeg.so.62" and os.path.exists(path):
+            return path
+    return None
+
+
+def libjpeg_link() -> dict:
+    """The libjpeg (ABI 62, the interface of the headers copied beside
+    ``pipeline/csrc/jpegdec.cpp``) that the JPEG decoder links:
+
+    * the system's ``libjpeg.so.62`` where ``ldconfig -p`` lists it, linked
+      with ``-ljpeg`` where the unversioned ``libjpeg.so`` beside it names the
+      same file, else by its path;
+    * else the libjpeg-turbo that Pillow's wheel carries
+      (``pillow.libs/libjpeg-*.so.62*``), by its path, with an rpath to it.
+
+    Returns ``{"source", "path", "version", "link_args"}``. Raises
+    ``RuntimeError`` when neither exists."""
+    path = _ldconfig_libjpeg62()
+    if path is not None:
+        dev = os.path.join(os.path.dirname(path), "libjpeg.so")
+        same = os.path.exists(dev) and os.path.realpath(dev) == os.path.realpath(path)
+        return {"source": "system", "path": os.path.realpath(path),
+                "version": os.path.basename(os.path.realpath(path)),
+                "link_args": ["-ljpeg"] if same else [path]}
+    try:
+        import PIL
+        from PIL import features
+    except ImportError:
+        libs = []
+    else:
+        libs_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(PIL.__file__))),
+                                "pillow.libs")
+        libs = sorted(glob.glob(os.path.join(libs_dir, "libjpeg-*.so.62*")))
+    if not libs:
+        raise RuntimeError("no libjpeg with the ABI-62 interface: ldconfig -p lists no "
+                           "libjpeg.so.62 and Pillow's wheel carries none in pillow.libs/")
+    return {"source": "pillow", "path": libs[0],
+            "version": f"libjpeg-turbo {features.version('libjpeg_turbo')}",
+            "link_args": [libs[0], f"-Wl,-rpath,{os.path.dirname(libs[0])}"]}
 
 
 def build_cuda_lib(src: str, stem: str, extra_flags: Optional[List[str]] = None) -> str:

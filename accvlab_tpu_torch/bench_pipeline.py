@@ -1,12 +1,14 @@
 """The headline multi-camera pipeline of ``bench.py``, built on the port.
 
-``bench.py:130-269`` as it runs on a host without libjpeg (the card
-machine): bench.py's dataset of 6 cameras of 372x1024 q90 JPEGs with 32
+``bench.py:130-269`` on its YUV wire (the DCT wire is not ported yet):
+bench.py's dataset of 6 cameras of 372x1024 q90 JPEGs with 32
 boxes of 10 classes each (16 unique frame sets), batches of 8 read through
 ``ShuffledShardedInputCallable``, and the **YUV 4:2:0 pixel wire**:
 
-* host: ``ImageDecoder(decode_resize_hw=out_hw, wire_format="yuv420")``
-  (PIL), then ``WirePlanePacker`` on the Y and CbCr planes;
+* host: ``ImageDecoder(decode_resize_hw=out_hw, wire_format="yuv420",
+  decoder=decoder)`` (libjpeg at its 6/8 DCT scale with ``"native"``, as
+  bench.py where libjpeg builds; PIL with ``"pil"``), then
+  ``WirePlanePacker`` on the Y and CbCr planes;
 * one packed transfer per batch;
 * device: ``WirePlaneUnpacker`` -> ``YCbCrToRGBConverter`` ->
   ``AffineTransformer`` -> ``PhotoMetricDistorter`` ->
@@ -15,9 +17,9 @@ boxes of 10 classes each (16 unique frame sets), batches of 8 read through
 
 ``wire="frames"`` feeds raw RGB frames of the same structured noise instead
 (no decoder, no wire codec), the path of the earlier slices and of
-:func:`~.train_centernet_e2e.build_train_pipeline`. The DCT wire waits for
-libjpeg on the card machine (ROADMAP.md): ``wire="dct"`` raises, where
-bench.py falls back quietly to the YUV wire.
+:func:`~.train_centernet_e2e.build_train_pipeline`. ``wire="dct"`` raises
+until the DCT wire is ported (ROADMAP.md), where bench.py falls back
+quietly to the YUV wire.
 
 ``measure_input_idle`` is ``bench.py:272-361``: the share of a CenterNet
 training loop fed by that pipeline that the card waits for input.
@@ -108,10 +110,10 @@ def build_pipeline(batch_size: int = 8, device=None, num_threads: Optional[int] 
                    seed: int = 0, hw_out_name: Optional[str] = None, wire: str = "yuv",
                    wire_pack: bool = True, echo_factor: int = 1,
                    cache_dir: Optional[str] = None, sampler: Optional[SamplerBase] = None,
-                   sampler_iterations: int = 1024):
+                   sampler_iterations: int = 1024, decoder: str = "pil"):
     """bench.py's pipeline on the port (``device`` defaults to the card).
 
-    ``wire``: ``"yuv"`` (bench.py on a host without libjpeg) or ``"frames"``
+    ``wire``: ``"yuv"`` (bench.py's YUV 4:2:0 wire) or ``"frames"``
     (raw RGB frames); ``"dct"`` raises. ``wire_pack=False`` ships the YUV
     planes without the plane codec. ``num_unique`` defaults to
     :data:`NUM_UNIQUE` of the wire. ``cache_dir`` keeps the encoded JPEGs in
@@ -123,8 +125,8 @@ def build_pipeline(batch_size: int = 8, device=None, num_threads: Optional[int] 
     """
     if wire == "dct":
         raise ValueError(
-            "wire='dct' (the JPEG DCT-coefficient wire) is not ported: it waits for "
-            "libjpeg on the card machine (ROADMAP.md); use wire='yuv'"
+            "wire='dct' (the JPEG DCT-coefficient wire) is not ported yet: it comes "
+            "after the native libjpeg decoder (ROADMAP.md); use wire='yuv'"
         )
     if wire not in NUM_UNIQUE:
         raise ValueError(f"wire must be 'yuv' or 'frames', got {wire!r}")
@@ -135,7 +137,8 @@ def build_pipeline(batch_size: int = 8, device=None, num_threads: Optional[int] 
     if wire == "yuv":
         provider = MultiCameraJpegProvider(num_samples=num_samples, num_unique=num_unique,
                                            hw=hw, num_cams=num_cams, cache_dir=cache_dir)
-        steps = [ImageDecoder("image", decode_resize_hw=out_hw, wire_format="yuv420")]
+        steps = [ImageDecoder("image", decode_resize_hw=out_hw, wire_format="yuv420",
+                              decoder=decoder)]
         if wire_pack:  # bench.py's ACCVLAB_BENCH_WIRE_PACK
             steps += [WirePlanePacker(["image", "image_cbcr"]),
                       WirePlaneUnpacker(["image", "image_cbcr"])]

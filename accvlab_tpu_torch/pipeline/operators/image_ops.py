@@ -92,7 +92,7 @@ def warp_affine(
         + v11 * wx * wy
     )
     valid = (src_x >= 0) & (src_x <= w - 1) & (src_y >= 0) & (src_y <= h - 1)
-    out = torch.where(valid[..., None], interp, torch.tensor(float(fill_value), device=dev))
+    out = torch.where(valid[..., None], interp, torch.full((), float(fill_value), device=dev))
     if not img.dtype.is_floating_point:
         info = np.iinfo(str(img.dtype).replace("torch.", ""))
         out = torch.clamp(torch.round(out), info.min, info.max)

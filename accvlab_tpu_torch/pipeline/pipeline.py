@@ -723,7 +723,8 @@ class TorchPipeline:
         ``consumer_wait_s``, ``device_stage_s`` (transfer + enqueue of the
         device steps; device work is asynchronous),
         ``queue_depth``/``queue_size``, ``bytes_per_batch`` (of the last
-        transfer) and ``input_bound_frac``."""
+        transfer) and ``input_bound_frac``; with an ``ImageDecoder`` among
+        the host steps, ``decoded_by``: the images each decoder took."""
         wait = self._stat_consumer_wait_s
         dev = self._stat_device_stage_s
         denom = wait + dev
@@ -739,7 +740,14 @@ class TorchPipeline:
             "queue_size": self._queue.qsize(),
             "bytes_per_batch": self._stat_transfer_bytes,
             "input_bound_frac": (wait / denom) if denom > 0.0 else 0.0,
+            **self._decoder_counts(),
         }
+
+    def _decoder_counts(self) -> dict:
+        counts = [s.decoded_by for s in self._host_steps if hasattr(s, "decoded_by")]
+        if not counts:
+            return {}
+        return {"decoded_by": {k: sum(c[k] for c in counts) for k in counts[0]}}
 
     def stop(self):
         """Shut down the producer thread and worker pool."""

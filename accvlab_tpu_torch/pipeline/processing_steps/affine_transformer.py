@@ -16,6 +16,13 @@ final transform is ``resize @ augmentation``. Probabilistic gating (``prob``)
 is a per-sample ``where``. Ported transformation steps: ``Translation`` and
 ``UniformScaling`` (the ones the headline pipeline uses); the others wait
 (ROADMAP.md).
+
+The input size is a ``(B, 2)`` float32 tensor on the batch's device: the
+images' shape, or each sample's own ``image_hw`` when
+``image_hw_field_names`` is given, as the JAX package reads it per sample
+under ``vmap``. So samples of different sizes padded to one shape each get
+their own resize, and nothing is read back to the host. The constants are
+made on the device (no copy from host memory).
 """
 
 from __future__ import annotations
@@ -35,13 +42,17 @@ from ..sample_data_group import SampleDataGroup
 
 Name = Union[str, int]
 
-_IDENTITY = np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], np.float32)
+
+def _homogeneous(affine: torch.Tensor) -> torch.Tensor:
+    """``(B, 2, 3)`` affines as ``(B, 3, 3)`` with the row ``0 0 1``."""
+    bottom = torch.zeros_like(affine[:, :1, :])
+    bottom[..., 2] = 1.0
+    return torch.cat([affine, bottom], dim=-2)
 
 
 def _compose(new: torch.Tensor, prior: torch.Tensor) -> torch.Tensor:
     """``new @ [prior; 0 0 1]`` for ``(B, 2, 3)`` affines, summed in dot order."""
-    bottom = torch.tensor([[0.0, 0.0, 1.0]], device=prior.device).expand(prior.shape[0], 1, 3)
-    p3 = torch.cat([prior, bottom], dim=-2)  # (B, 3, 3)
+    p3 = _homogeneous(prior)
     return (
         new[:, :, 0, None] * p3[:, None, 0, :]
         + new[:, :, 1, None] * p3[:, None, 1, :]
@@ -56,7 +67,7 @@ def _translation_mat(tx: torch.Tensor, ty: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _about_center(l00, l01, l10, l11, cx: float, cy: float) -> torch.Tensor:
+def _about_center(l00, l01, l10, l11, cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
     """``(B, 2, 3)`` matrix applying the 2x2 linear map about ``(cx, cy)``."""
     tx = cx - (l00 * cx + l01 * cy)
     ty = cy - (l10 * cx + l11 * cy)
@@ -79,7 +90,8 @@ class AffineTransformer(PipelineStepBase):
             self._bsz = 1
             self._device = torch.device("cpu")
 
-        def __call__(self, prior_trafo: torch.Tensor, image_hw, rng) -> torch.Tensor:
+        def __call__(self, prior_trafo: torch.Tensor, image_hw: torch.Tensor,
+                     rng) -> torch.Tensor:
             self._rng = rng
             self._bsz = prior_trafo.shape[0]
             self._device = prior_trafo.device
@@ -109,9 +121,9 @@ class AffineTransformer(PipelineStepBase):
             return self._uniform(lo, hi)
 
         @staticmethod
-        def _get_center_xy(image_hw) -> Tuple[float, float]:
-            hw = np.asarray(image_hw, np.float32)
-            return float(hw[1] * np.float32(0.5)), float(hw[0] * np.float32(0.5))
+        def _get_center_xy(image_hw: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+            """Each sample's centre ``(x, y)`` from its ``(B, 2)`` float32 size."""
+            return image_hw[:, 1] * 0.5, image_hw[:, 0] * 0.5
 
         def _simple_add(self, prev_types: Set[type]) -> Set[type]:
             res = set(prev_types)
@@ -204,58 +216,56 @@ class AffineTransformer(PipelineStepBase):
 
     # -- transform construction ----------------------------------------- #
 
-    def _get_transformation(self, image_hw, bsz: int, device) -> torch.Tensor:
-        resize = self._get_transformation_to_output_size(image_hw, bsz, device)
+    def _get_transformation(self, image_hw: torch.Tensor) -> torch.Tensor:
+        resize = self._get_transformation_to_output_size(image_hw)
         if self._transformation_steps:
-            augmentation = torch.as_tensor(_IDENTITY, device=device).expand(bsz, 2, 3)
+            augmentation = torch.eye(2, 3, device=image_hw.device).expand(image_hw.shape[0], 2, 3)
             for step in self._transformation_steps:
                 augmentation = step(augmentation, image_hw, self.random)
             return _compose(resize, augmentation)  # resize applied after
         return resize
 
-    def _get_transformation_to_output_size(self, input_hw, bsz: int, device) -> torch.Tensor:
-        """Parity: ``affine_transformer.py:468-494`` (static sizes, so the
-        scalars are computed in float32 on the host)."""
-        f32 = np.float32
-        out_h, out_w = f32(self._output_hw[0]), f32(self._output_hw[1])
-        hw = np.asarray(input_hw, f32)
+    def _get_transformation_to_output_size(self, input_hw: torch.Tensor) -> torch.Tensor:
+        """Parity: ``affine_transformer.py:468-494``, per sample from the
+        ``(B, 2)`` float32 sizes, in its float32 order (a division, then the
+        ``frac`` products)."""
+        hw_h, hw_w = input_hw[:, 0], input_hw[:, 1]
+        out_h = torch.full_like(hw_h, float(self._output_hw[0]))
+        out_w = torch.full_like(hw_w, float(self._output_hw[1]))
+        zero = torch.zeros_like(hw_h)
         mode, anchor = self._resizing_mode, self._resizing_anchor
         if mode == self.ResizingMode.STRETCH:
-            mat = [[out_w / hw[1], 0.0, 0.0], [0.0, out_h / hw[0], 0.0]]
+            rows = [[out_w / hw_w, zero, zero], [zero, out_h / hw_h, zero]]
         elif mode in (self.ResizingMode.PAD, self.ResizingMode.CROP):
-            ratios = [out_h / hw[0], out_w / hw[1]]
-            s = min(ratios) if mode == self.ResizingMode.PAD else max(ratios)
+            ratio_h, ratio_w = out_h / hw_h, out_w / hw_w
+            s = (torch.minimum if mode == self.ResizingMode.PAD else torch.maximum)(ratio_h,
+                                                                                    ratio_w)
             if anchor == self.ResizingAnchor.TOP_OR_LEFT:
-                shift = (f32(0.0), f32(0.0))
+                shift = (zero, zero)
             elif anchor in (self.ResizingAnchor.CENTER, self.ResizingAnchor.BOTTOM_OR_RIGHT):
-                frac = f32(0.5 if anchor == self.ResizingAnchor.CENTER else 1.0)
-                shift = (out_w * frac - s * hw[1] * frac, out_h * frac - s * hw[0] * frac)
+                frac = 0.5 if anchor == self.ResizingAnchor.CENTER else 1.0
+                shift = (out_w * frac - s * hw_w * frac, out_h * frac - s * hw_h * frac)
             else:
                 raise ValueError(f"Resizing anchor {anchor} not supported.")
-            mat = [[s, 0.0, shift[0]], [0.0, s, shift[1]]]
+            rows = [[s, zero, shift[0]], [zero, s, shift[1]]]
         else:
             raise ValueError(f"Resizing mode {mode} not supported.")
-        return torch.as_tensor(np.asarray(mat, f32), device=device).expand(bsz, 2, 3)
+        return torch.stack([torch.stack(r, -1) for r in rows], -2)
 
     # -- step interface -------------------------------------------------- #
 
     def _process(self, data: SampleDataGroup) -> SampleDataGroup:
         if self._extract_size_from_images:
             first = data.get_item_in_path(data.find_all_occurrences(self._image_field_names[0])[0])
-            image_hw = tuple(int(v) for v in first.shape[-3:-1])
+            bsz, device = first.shape[0], first.device
+            image_hw = torch.stack([torch.full((bsz,), float(v), device=device)
+                                    for v in first.shape[-3:-1]], -1)
         else:
             hw_t = data.get_item_in_path(data.find_all_occurrences(self._image_hw_field_names[0])[0])
-            # the transform needs the size as host scalars; all samples must share it
-            hw_np = np.asarray(hw_t.cpu() if isinstance(hw_t, torch.Tensor) else hw_t)
-            hw_np = hw_np.reshape(-1, 2)
-            if not (hw_np == hw_np[:1]).all():
-                raise ValueError("AffineTransformer: all samples of a batch must share image_hw")
-            first = hw_t
-            image_hw = tuple(int(v) for v in hw_np[0])
-        bsz = first.shape[0]
-        device = first.device if isinstance(first, torch.Tensor) else torch.device("cpu")
+            image_hw = torch.as_tensor(hw_t).reshape(-1, 2).to(torch.float32)
+            bsz, device = image_hw.shape[0], image_hw.device
 
-        transform = self._get_transformation(image_hw, bsz, device)
+        transform = self._get_transformation(image_hw)
 
         for image_field_name in self._image_field_names:
             for ip in data.find_all_occurrences(image_field_name):
@@ -267,8 +277,7 @@ class AffineTransformer(PipelineStepBase):
             for pp in data.find_all_occurrences(name):
                 parent = data.get_parent_of_path(pp)
                 proj = parent[name].to(torch.float32)
-                bottom = torch.tensor([[0.0, 0.0, 1.0]], device=device).expand(bsz, 1, 3)
-                parent[name] = torch.matmul(torch.cat([transform, bottom], dim=-2), proj)
+                parent[name] = torch.matmul(_homogeneous(transform), proj)
         for name in self._point_field_names:
             for pp in data.find_all_occurrences(name):
                 parent = data.get_parent_of_path(pp)
@@ -280,9 +289,10 @@ class AffineTransformer(PipelineStepBase):
             for name in self._image_hw_field_names:
                 for sp in data.find_all_occurrences(name):
                     parent = data.get_parent_of_path(sp)
-                    parent[name] = torch.tensor(
-                        self._output_hw, dtype=torch.int32, device=device
-                    ).expand(bsz, 2).contiguous()
+                    out_hw = torch.full((bsz, 2), self._output_hw[0], dtype=torch.int32,
+                                        device=device)
+                    out_hw[:, 1] = self._output_hw[1]
+                    parent[name] = out_hw
         return data
 
     def _check_and_adjust_data_format_input_to_output(

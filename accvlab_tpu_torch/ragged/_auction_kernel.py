@@ -84,8 +84,8 @@ def launch_auction(cost: torch.Tensor, num_valid: torch.Tensor, eps: torch.Tenso
         limit = lib.accvlab_auction_smem_limit()
         in_smem = int(lib.accvlab_auction_smem_bytes(r, c, 1) <= limit)
         if lib.accvlab_auction_smem_bytes(r, c, in_smem) > limit:
-            raise ValueError(f"the auction kernel keeps 16 bytes per column in shared memory: "
-                             f"{c} columns exceed the block's {limit} bytes")
+            raise ValueError(f"the auction kernel keeps 8 bytes per column and 24 per row in "
+                             f"shared memory: ({r}, {c}) exceeds the block's {limit} bytes")
         stream = torch.cuda.current_stream(cost.device).cuda_stream
         err = lib.accvlab_auction(_P(cost.data_ptr()), _P(num_valid.data_ptr()),
                                   _P(eps.data_ptr()), _P(cols.data_ptr()),

@@ -26,40 +26,46 @@
 //   4. the previous owner of every won column is evicted, the winner
 //      installed, the column's price set to the winning bid;
 //   5. stop when no valid row is unassigned or after max_iters rounds.
-// Evicted rows are assigned rows and winners unassigned ones, so the two
-// sets are disjoint and the column pass writes each row at most once: no
-// write order matters (matching.py:95-106 does the same with a gather).
 //
-// Design, a first one that only has to be right:
-//   * the valid rows of the (R, C) cost are copied into dynamic shared
-//     memory when the whole matrix fits
-//     (the batched loss example's (48, 300) float32 is 57.6 kB, above the
-//     default 48 kB, so the launch opts in), else read through L2;
-//   * prices, owners, per-column bid keys and col_of_row live in shared
-//     memory;
-//   * bidding: one warp per bidding row, each lane scanning a strided share
-//     of the columns for (best, its column, second) over the numbers and for
-//     its first NaN column apart, off the scan's dependency chain; then a
-//     shuffle reduction, ties to the lower column, and a warp min of the NaN
-//     columns: a NaN, where there is one, is the best;
-//   * column bids: a 64-bit atomicMax on (order-preserving float bits << 32
-//     | ~row): the maximum is the highest bid and, among equal bids, the
-//     lowest row, whatever order the warps arrive in;
-//   * __syncthreads() between the bid pass and the column pass, and
-//     __syncthreads_or() for the exit test;
-//   * it counts the bids each sample placed (one per bidding row per
-//     round), the work its rounds did.
-// What bounds it: each round reads the bidders' cost rows from shared
-// memory and does a few operations per entry; one
-// sample is one block, so a batch of 8 fills 8 of the 132 SMs and the work
-// is held by the rounds' latency (a chain of dependent shared-memory passes
-// and barriers), not by the card's rates.
+// What bounds it: the rounds of one sample run one after another, and a
+// round has few bidders (on the batched loss example's 8 x 48 x 300 cost,
+// 6,442 bids over the 2,056 rounds of its slowest sample: about 3). So the
+// time is the latency of a round, a chain of dependent shared-memory passes
+// and barriers, not the card's rates; a batch of 8 fills 8 of the 132 SMs.
+// The design spends each round's work on its bidders only:
+//   * a list of the unassigned valid rows (double-buffered in shared memory)
+//     replaces the scans of every row and every column: each warp takes the
+//     bidders of the list in turn, and the exit test is the next list's
+//     length;
+//   * a bidder is one warp: each lane scans a strided share of the columns,
+//     in two interleaved chains so that loads overlap compares, for (best,
+//     its column, second) and apart, off those chains, for its first NaN
+//     column; the lanes merge with three hardware warp reductions
+//     (__reduce_max_sync / __reduce_min_sync on order-preserving bits, -0
+//     folded into +0 so that equal floats stay equal) in place of a
+//     shuffle tree;
+//   * each bid goes to a slot of the round, (column, key), the key being
+//     (order-preserving bid bits << 32 | ~row): the highest key of a column
+//     is its highest bid and, among equal bids, its lowest row. After one
+//     barrier each bidder compares its key with the round's other slots, a
+//     lane per slot, and settles its own column if it won: it evicts the
+//     previous owner, installs itself and sets the price. The evicted row,
+//     or the bidder itself if it lost, goes to the next list. Winners hold
+//     distinct columns and evicted rows are not bidders, so no two warps
+//     write one place; no atomic decides a winner;
+//   * two barriers per round: after the bids, and after the settling.
+// The cost's valid rows live in dynamic shared memory when they fit (the
+// example's (48, 300) float32 is 57.6 kB, above the default 48 kB, so the
+// launch opts in), else they are read through L2. It counts the bids each
+// sample placed (one per bidding row per round), the work its rounds did.
 //
 // Numerics: the bid spells each rounding out (__fadd_rn, __fsub_rn) and the
-// file is built with -fmad=false; negation and max are exact, so the result
-// is the JAX round's bit for bit.
+// file is built with -fmad=false; negation and max are exact, and the sign
+// of a zero best or second value cannot change the bid, so the result is
+// the JAX round's bit for bit.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -67,6 +73,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kNoCol = 0x7fffffffu;
 
 __device__ __forceinline__ uint32_t ordered_bits(float f) {
   uint32_t u = __float_as_uint(f);
@@ -77,21 +85,35 @@ __device__ __forceinline__ float from_ordered_bits(uint32_t u) {
   return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
 }
 
-// (best value, its column, second value) of one lane or of a merged group.
+// (best value, its column, second value) of one chain, a lane or a merge.
 struct Best {
   float best;
   int col;
   float second;
 };
 
-// Merge two candidates over numbers (a NaN compares false and never enters):
-// the higher value (the lower column on a tie) is the best; the second is
-// the max of everything else.
+// Column c (value v; in: c < cols) into a chain that sees its columns in
+// increasing order, with selects and no branch. The first number taken is
+// the chain's first non-NaN value (a tie with the empty chain's -inf goes to
+// the lower column, as argmax does); after it, only a higher value takes the
+// best, so ties keep the lower column. A NaN compares false and never
+// enters; fmaxf passes over it. best >= second holds throughout, so a taken
+// value leaves the old best as the second (whose sign of zero cannot change
+// the bid).
+__device__ __forceinline__ void fold(Best& m, float v, int c, bool in) {
+  const bool take = in && (v > m.best || (m.col == INT_MAX && v == v));
+  const float others = in ? fmaxf(m.second, v) : m.second;
+  m.second = take ? m.best : others;
+  m.best = take ? v : m.best;
+  m.col = take ? c : m.col;
+}
+
+// Two chains' candidates: the higher value (the lower column on a tie) is
+// the best; the second is the max of everything else.
 __device__ __forceinline__ Best merge(Best a, Best b) {
-  if (b.best > a.best || (b.best == a.best && b.col < a.col)) {
-    return Best{b.best, b.col, fmaxf(b.second, a.best)};
-  }
-  return Best{a.best, a.col, fmaxf(a.second, b.best)};
+  const bool second_wins = b.best > a.best || (b.best == a.best && b.col < a.col);
+  return second_wins ? Best{b.best, b.col, fmaxf(b.second, a.best)}
+                     : Best{a.best, a.col, fmaxf(a.second, b.best)};
 }
 
 template <bool COST_IN_SMEM>
@@ -101,29 +123,31 @@ auction_kernel(const float* __restrict__ cost, const int* __restrict__ num_valid
                int* __restrict__ rounds_out, int* __restrict__ bids_out, int rows, int cols,
                int max_iters) {
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem);  // [cols]
-  float* prices = reinterpret_cast<float*>(keys + cols);                    // [cols]
-  int* owner = reinterpret_cast<int*>(prices + cols);                        // [cols]
-  int* col_of_row = owner + cols;                                            // [rows]
-  int* bids = col_of_row + rows;                                             // [1]
-  float* cost_s = reinterpret_cast<float*>(bids + 1);                        // [rows * cols]
+  unsigned long long* slot_key = reinterpret_cast<unsigned long long*>(smem);  // [rows]
+  float* prices = reinterpret_cast<float*>(slot_key + rows);                   // [cols]
+  int* owner = reinterpret_cast<int*>(prices + cols);                           // [cols]
+  int* col_of_row = owner + cols;                                               // [rows]
+  int* slot_col = col_of_row + rows;                                            // [rows]
+  int* lists = slot_col + rows;                                                 // [2][rows]
+  int* counts = lists + 2 * rows;                                               // [2]
+  float* cost_s = reinterpret_cast<float*>(counts + 2);                         // [rows * cols]
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const float* cost_b = cost + static_cast<size_t>(b) * rows * cols;
-  const int n_valid = num_valid[b];
-  const int n_rows = max(0, min(n_valid, rows));  // the rows that bid
+  const int n_rows = max(0, min(num_valid[b], rows));  // the rows that bid
   const float eps_b = eps[b];
-  if (tid == 0) *bids = 0;
 
   for (int c = tid; c < cols; c += kThreads) {
-    keys[c] = 0ull;
     prices[c] = 0.0f;
     owner[c] = -1;
   }
-  for (int r = tid; r < rows; r += kThreads) col_of_row[r] = -1;
+  for (int r = tid; r < rows; r += kThreads) {
+    col_of_row[r] = -1;
+    lists[r] = r;  // the first round's bidders: every valid row
+  }
   if (COST_IN_SMEM) {
     for (int i = tid; i < n_rows * cols; i += kThreads) cost_s[i] = cost_b[i];
   }
@@ -131,90 +155,107 @@ auction_kernel(const float* __restrict__ cost, const int* __restrict__ num_valid
   __syncthreads();
 
   int it = 0;
-  int warp_bids = 0;
-  int active = n_rows > 0 ? 1 : 0;  // some valid row is unassigned
-  while (it < max_iters && active) {
-    // bid pass: one warp per unassigned valid row
-    for (int r = warp; r < n_rows; r += kWarps) {
-      if (col_of_row[r] >= 0) continue;
-      ++warp_bids;
+  int bids = 0;
+  int n_bidders = n_rows;
+  while (it < max_iters && n_bidders > 0) {
+    const int* bidders = lists + (it & 1) * rows;
+    int* next = lists + ((it + 1) & 1) * rows;
+    int* next_count = counts + ((it + 1) & 1);
+
+    // bid: one warp per bidder
+    for (int i = warp; i < n_bidders; i += kWarps) {
+      const int r = bidders[i];
       const float* row = cst + static_cast<size_t>(r) * cols;
-      Best m{-INFINITY, 0x7fffffff, -INFINITY};
-      unsigned nan_col = 0x7fffffffu;  // the lane's first NaN column
-      for (int c = lane; c < cols; c += 32) {
-        const float v = __fsub_rn(-row[c], prices[c]);
-        if (v > m.best || (v == m.best && c < m.col)) {
-          m.second = fmaxf(m.second, m.best);
-          m.best = v;
-          m.col = c;
-        } else {
-          m.second = fmaxf(m.second, v);  // fmaxf passes over a NaN
-        }
-        if (isnan(v)) nan_col = min(nan_col, static_cast<unsigned>(c));
+      // two chains over alternate columns, so that the loads of one overlap
+      // the compares of the other; merged at the end
+      Best a{-INFINITY, INT_MAX, -INFINITY}, z{-INFINITY, INT_MAX, -INFINITY};
+      unsigned nan_col = kNoCol;  // the lane's first NaN column
+#pragma unroll 4
+      for (int c0 = 0; c0 < cols; c0 += 64) {
+        const int ca = c0 + lane, cz = ca + 32;
+        const bool ina = ca < cols, inz = cz < cols;
+        const float va = __fsub_rn(-(ina ? row[ca] : 0.0f), ina ? prices[ca] : 0.0f);
+        const float vz = __fsub_rn(-(inz ? row[cz] : 0.0f), inz ? prices[cz] : 0.0f);
+        fold(a, va, ca, ina);
+        fold(z, vz, cz, inz);
+        const unsigned na = ina && va != va ? static_cast<unsigned>(ca) : kNoCol;
+        const unsigned nz = inz && vz != vz ? static_cast<unsigned>(cz) : kNoCol;
+        nan_col = min(nan_col, min(na, nz));
       }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        Best o{__shfl_xor_sync(0xffffffffu, m.best, off),
-               __shfl_xor_sync(0xffffffffu, m.col, off),
-               __shfl_xor_sync(0xffffffffu, m.second, off)};
-        m = merge(m, o);
-      }
+      a = merge(a, z);
+      const float best = a.best, second = a.second;
+      const int col = a.col;
+      // the row's best: the highest value, its lowest column; the second:
+      // the winning lane's own second and every other lane's best
+      const unsigned best_key = __reduce_max_sync(kFull, ordered_bits(__fadd_rn(best, 0.0f)));
+      const int best_col = __reduce_min_sync(
+          kFull, ordered_bits(__fadd_rn(best, 0.0f)) == best_key ? col : INT_MAX);
+      const float mine = col == best_col ? second : best;
+      const unsigned second_key = __reduce_max_sync(kFull, ordered_bits(__fadd_rn(mine, 0.0f)));
       // argmax order puts a NaN above every number (jnp.argmax and
       // torch.argmax take the first NaN): its bid is NaN, whatever the second
-      nan_col = __reduce_min_sync(0xffffffffu, nan_col);
-      if (nan_col != 0x7fffffffu) {
-        m.best = __uint_as_float(0x7fffffffu);
-        m.col = static_cast<int>(nan_col);
-      }
+      nan_col = __reduce_min_sync(kFull, nan_col);
+      // every lane computes the bid (no divergence); lane 0 stores it
+      const bool has_nan = nan_col != kNoCol;
+      const int c = has_nan ? static_cast<int>(nan_col) : best_col;
+      const float best_val = has_nan ? __uint_as_float(0x7fffffffu) : from_ordered_bits(best_key);
+      const float bid = __fadd_rn(
+          __fadd_rn(prices[c], __fsub_rn(best_val, from_ordered_bits(second_key))), eps_b);
+      const uint32_t bits = isnan(bid) ? 0xffffffffu : ordered_bits(bid);
       if (lane == 0) {
-        const float bid =
-            __fadd_rn(__fadd_rn(prices[m.col], __fsub_rn(m.best, m.second)), eps_b);
-        const uint32_t bits = isnan(bid) ? 0xffffffffu : ordered_bits(bid);
-        const unsigned long long key =
-            (static_cast<unsigned long long>(bits) << 32) |
-            static_cast<unsigned long long>(~static_cast<uint32_t>(r));
-        atomicMax(&keys[m.col], key);
+        slot_col[i] = c;
+        slot_key[i] = (static_cast<unsigned long long>(bits) << 32) |
+                      static_cast<unsigned long long>(~static_cast<uint32_t>(r));
       }
     }
+    if (tid == 0) *next_count = 0;
     __syncthreads();
 
-    // column pass: evict, install, price; clear the keys for the next round
-    for (int c = tid; c < cols; c += kThreads) {
-      const unsigned long long key = keys[c];
-      if (key == 0ull) continue;
-      keys[c] = 0ull;
-      const float bid = from_ordered_bits(static_cast<uint32_t>(key >> 32));
-      if (!isfinite(bid)) continue;
-      const int winner = static_cast<int>(~static_cast<uint32_t>(key & 0xffffffffull));
-      const int prev = owner[c];
-      if (prev >= 0) col_of_row[prev] = -1;
-      col_of_row[winner] = c;
-      owner[c] = winner;
-      prices[c] = bid;
+    // settle: each bidder's warp settles its own column if its key is the
+    // column's highest of the round
+    for (int i = warp; i < n_bidders; i += kWarps) {
+      const int c = slot_col[i];
+      const unsigned long long key = slot_key[i];
+      bool lost = false;
+      for (int j0 = 0; j0 < n_bidders; j0 += 32) {  // a lane per slot
+        const int j = j0 + lane;
+        const bool in = j < n_bidders;
+        lost |= in && (in ? slot_col[j] : -1) == c && (in ? slot_key[j] : 0ull) > key;
+      }
+      lost = __any_sync(kFull, lost);
+      const int r = static_cast<int>(~static_cast<uint32_t>(key & 0xffffffffull));
+      const bool won = !lost && isfinite(from_ordered_bits(static_cast<uint32_t>(key >> 32)));
+      const int prev = won ? owner[c] : -1;
+      const int unassigned = won ? prev : r;  // the row that joins the next round's bidders
+      if (lane == 0) {
+        if (won) {
+          if (prev >= 0) col_of_row[prev] = -1;
+          col_of_row[r] = c;
+          owner[c] = r;
+          prices[c] = from_ordered_bits(static_cast<uint32_t>(key >> 32));
+        }
+        if (unassigned >= 0) next[atomicAdd(next_count, 1)] = unassigned;
+      }
     }
+    bids += n_bidders;
     __syncthreads();
-
+    n_bidders = *next_count;
     ++it;
-    int unassigned = 0;
-    for (int r = tid; r < n_rows; r += kThreads) {
-      unassigned |= (col_of_row[r] < 0);
-    }
-    active = __syncthreads_or(unassigned);
   }
 
-  if (lane == 0 && warp_bids > 0) atomicAdd(bids, warp_bids);
   for (int r = tid; r < rows; r += kThreads) {
     col_of_row_out[static_cast<size_t>(b) * rows + r] = r < n_rows ? col_of_row[r] : -1;
   }
-  __syncthreads();
   if (tid == 0) {
     rounds_out[b] = it;
-    bids_out[b] = *bids;
+    bids_out[b] = bids;
   }
 }
 
 size_t state_bytes(int rows, int cols) {
-  return static_cast<size_t>(cols) * (8 + 4 + 4) + static_cast<size_t>(rows) * 4 + 4;
+  // slot keys; prices and owners; col_of_row, slot columns, two lists; two counts
+  return static_cast<size_t>(rows) * 8 + static_cast<size_t>(cols) * (4 + 4) +
+         static_cast<size_t>(rows) * (4 + 4 + 2 * 4) + 2 * 4;
 }
 
 }  // namespace

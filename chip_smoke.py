@@ -5,9 +5,11 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each printing one JSON line (a failing phase exits non-zero):
 
 1. header  — card name and power limit (nvidia-smi), torch and CUDA versions;
-2. build   — the host packer and the wire encoder (g++), the CUDA
-             rasterizer and the CUDA auction (nvcc, sm_90a), compiled in
-             parallel into accvlab_tpu_torch/_build/;
+2. build   — the host packer, the wire encoder and the native JPEG decoder
+             (g++; the decoder linked with the system's libjpeg.so.62 or, on
+             a host without one, Pillow's libjpeg-turbo, named in the line),
+             the CUDA rasterizer and the CUDA auction (nvcc, sm_90a),
+             compiled in parallel into accvlab_tpu_torch/_build/;
 3. kernels — the rasterizer through each entry point (draw_heatmap_batched,
              its classwise form, draw_heatmap, draw_gaussians), exact and
              fast exp, at the main path's shapes and the reference headline
@@ -22,8 +24,10 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              on any copy or wait between host and card;
 4. main    — bench.py's multi-camera pipeline on the port at full width, on
              bench.py's YUV 4:2:0 wire (6 x 372x1024 q90 JPEG, 16 unique
-             frame sets, PIL decode + resize to 256x704 and the plane codec
-             on the host, unpack + colour conversion on the card; batch 8,
+             frame sets, decoded by WIRE_DECODER (libjpeg at its 6/8 DCT
+             scale, straight to 256x704 planes; the line counts the frames
+             each decoder took) and the plane codec on the host, unpack +
+             colour conversion on the card; batch 8,
              heatmap 10x64x176, T=32) through run(): 2 warm-up batches, then
              3 timed windows of 100 batches (frames/s per window and their
              median); bytes per batch and the packer's choices; outputs
@@ -46,6 +50,10 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              TRAIN_TOL; and the ragged gather's backward at the main path's
              shapes with many duplicate indices, twice on the card: both
              bitwise equal to each other and to the CPU's;
+   affine_sizes — AffineTransformer on a batch of mixed image_hw (sizes
+             per sample, nothing read back): points, projection matrices and
+             the rewritten sizes on the card against the CPU run, under
+             torch.cuda.set_sync_debug_mode("error");
 9. train   — the training path at full width: build_train_pipeline (raw
              frames, 6 cameras x batch 8, heatmap 10x64x176) ->
              batch_to_train_inputs of all cameras (48 images) ->
@@ -56,8 +64,9 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              of the bf16 peak), then one step under
              torch.cuda.set_sync_debug_mode("error");
 10. input_idle — bench_pipeline.measure_input_idle(pipe, 6, n_iters=50,
-             width=64) on the YUV wire and on raw frames: t_e2e, t_comp,
-             idle and the pipeline's input_bound_frac of each;
+             width=64) on the YUV wire (WIRE_DECODER, with its counts) and on
+             raw frames: t_e2e, t_comp, idle and the pipeline's
+             input_bound_frac of each;
 11. petr_parity — the full-width motion-aware streaming PETR (128 queries,
              64 memory slots, dim 128, 3 layers) with the same weights
              (numpy arrays through load_jax_params) on the card and on the
@@ -79,8 +88,16 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              (matching_edge_cases); the gap to scipy's Hungarian optimum
              on (a) and (b), held within R * eps; rounds per sample; kernel
              and plain ms (medians of 50 and 10) beside the bound; scipy's
-             host ms; one call under the sync check;
-14. the {"kernels": [...]} line, the nvidia-smi line, and last the result
+             host ms; µs per round of the slowest sample; one call under the
+             sync check;
+14. matched_loss — batched_loss_computation's full iteration at the
+             example's width (8 x 48 x 300, head dim 256): the step with
+             matches from the CUDA auction inside it and the step after the
+             host Hungarian loop, their losses within 1e-5, each timed with
+             CUDA events (median of MATCHED_STEPS); the device form under
+             the sync check (the host form synchronises: it reads the cost
+             back); the device form's matches equal to the plain auction's;
+15. the {"kernels": [...]} line, the nvidia-smi line, and last the result
    line {"ok": true, "device": {...}}.
 
 The pipeline phases (main, main_frames, echo, train, input_idle, petr) each count
@@ -124,6 +141,10 @@ RESUME_BATCHES = 3
 PETR_FRESH_STEPS = 10
 PETR_TIMED_STEPS = 10
 PETR_CACHED_STEPS = 10
+MATCHED_STEPS = 20
+# the YUV wire's host decoder: libjpeg (a host without a system libjpeg
+# links the libjpeg-turbo in Pillow's wheel; the build line names it)
+WIRE_DECODER = "native"
 # the full-width PETR, card against CPU: bf16 attention and MLPs (a bf16
 # rounding is 2^-8 of a value; the two sides sum the products in different
 # orders). Outputs and memory relative to the largest magnitude of each
@@ -548,7 +569,8 @@ def main_phase(dev, card: str):
 
     batch, num_cams = 8, 6
     t0 = time.perf_counter()
-    pipe = build_pipeline(batch_size=batch, device=dev, cache_dir=CACHE_DIR)
+    pipe = build_pipeline(batch_size=batch, device=dev, cache_dir=CACHE_DIR,
+                          decoder=WIRE_DECODER)
     setup_s = time.perf_counter() - t0
     first = {k: v.clone() for k, v in pipe.run().items()}  # batch 0, kept for the plain recompute
     pipe.run()
@@ -568,13 +590,16 @@ def main_phase(dev, card: str):
         fail(f"main path: draw_gaussians launched {launches} times for {n_batches} batches")
     check_outputs(out, num_cams, batch)
     check_outputs(first, num_cams, batch)
+    decoded = stats["decoded_by"]
+    if decoded[WIRE_DECODER] == 0 or sum(decoded.values()) != decoded[WIRE_DECODER]:
+        fail(f"main path: frames decoded by {decoded}, not all by {WIRE_DECODER}")
     if not 0 < stats["bytes_per_batch"] < UNPACKED_PLANE_BYTES:
         fail(f"main path: {stats['bytes_per_batch']} bytes per batch, not below the "
              f"{UNPACKED_PLANE_BYTES} bytes of the unpacked planes")
 
     # batch 0 again, with the plain heatmap version: same host batch, same draws
     plain_pipe = build_pipeline(batch_size=batch, device=dev, heatmap_implementation="torch",
-                                cache_dir=CACHE_DIR)
+                                cache_dir=CACHE_DIR, decoder=WIRE_DECODER)
     plain = plain_pipe.run()
     torch.cuda.synchronize()
     plain_pipe.stop()
@@ -601,9 +626,9 @@ def main_phase(dev, card: str):
         "consumer_wait_s": stats["consumer_wait_s"], "device_stage_s": stats["device_stage_s"],
         "producer_busy_s": stats["producer_busy_s"], "produced": stats["produced"],
         "input_bound_frac": stats["input_bound_frac"], "plain_recompute_max_abs_err": worst,
-        "setup_s": setup_s,
-        "config": "YUV 4:2:0 wire, packed: 6 cams x 372x1024 q90 JPEG (16 unique sets, PIL "
-                  "decode + resize to 256x704), batch 8, heatmap 10x64x176, T=32",
+        "setup_s": setup_s, "decoder": WIRE_DECODER, "decoded_by": decoded,
+        "config": f"YUV 4:2:0 wire, packed: 6 cams x 372x1024 q90 JPEG (16 unique sets, decoder "
+                  f"{WIRE_DECODER!r} to 256x704), batch 8, heatmap 10x64x176, T=32",
     })
     return main_launches
 
@@ -654,7 +679,7 @@ def wire_phase(dev, card: str):
     from accvlab_tpu_torch.pipeline.processing_steps import WirePlaneUnpacker, YCbCrToRGBConverter
 
     kw = dict(batch_size=8, device=dev, cache_dir=CACHE_DIR, affine_prob=0.0,
-              photometric_prob=0.0)
+              photometric_prob=0.0, decoder=WIRE_DECODER)
     packed, raw = build_pipeline(**kw), build_pipeline(wire_pack=False, **kw)
     try:
         host_packed = packed._produce_host_batch()[3]
@@ -714,7 +739,7 @@ def echo_phase(dev, card: str):
 
     batch, num_cams = 8, 6
     build = lambda: build_pipeline(batch_size=batch, device=dev, cache_dir=CACHE_DIR,  # noqa: E731
-                                   echo_factor=2)
+                                   echo_factor=2, decoder=WIRE_DECODER)
     pipe = build()
     try:
         first = [{k: v.clone() for k, v in pipe.run().items()} for _ in range(2)]
@@ -767,7 +792,51 @@ def echo_phase(dev, card: str):
           "consumed": stats["consumed"], "transfers": stats["transfers"],
           "bytes_per_transfer": stats["bytes_per_batch"], "replays_differ": True,
           "state": state, "resumed_batches_bitwise": RESUME_BATCHES,
-          "draw_gaussians_launches": launches})
+          "draw_gaussians_launches": launches, "decoded_by": stats["decoded_by"]})
+
+
+def affine_sizes_phase(dev, card: str):
+    """AffineTransformer with each sample's size from ``image_hw``: a batch
+    of 8 whose sources have four sizes, on the card under the sync check
+    (the sizes stay on the card) and on the CPU."""
+    from accvlab_tpu_torch.pipeline import DType, SampleDataGroup, ScriptedRandomContext
+    from accvlab_tpu_torch.pipeline.processing_steps import AffineTransformer as A
+
+    rng = np.random.default_rng(6)
+    sizes = np.array([(372, 1024), (256, 704), (480, 640), (300, 900)] * 2, np.int32)
+    pts = (rng.uniform(0, 1, (8, 32, 4)) * np.tile(sizes[:, None, ::-1], 2)).astype(np.float32)
+    proj = (rng.normal(size=(8, 3, 4)) * 100).astype(np.float32)
+    step = A(output_hw=(256, 704), resizing_mode=A.ResizingMode.PAD,
+             resizing_anchor=A.ResizingAnchor.CENTER, image_hw_field_names="image_hw",
+             projection_matrix_field_names="proj", point_field_names="pts",
+             transformation_steps=[A.UniformScaling(1.0, 1.05), A.Translation(1.0, [3.0, -2.0])])
+    step.set_random_context(ScriptedRandomContext())  # fixed steps: no draw
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        sdg = SampleDataGroup()
+        for name, dtype in (("image_hw", DType.INT32), ("pts", DType.FLOAT), ("proj", DType.FLOAT)):
+            sdg.add_data_field(name, dtype)
+        sdg.set_data([torch.from_numpy(a).to(d) for a in (sizes, pts, proj)])
+        torch.cuda.synchronize()
+        if d.type == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = step._process(sdg)
+        except RuntimeError as e:
+            fail(f"affine_sizes: the step synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out[d.type] = {k: res[k].cpu() for k in ("image_hw", "pts", "proj")}
+    errors = {k: rel_to_max(out["cuda"][k], out["cpu"][k]) for k in ("pts", "proj")}
+    if max(errors.values()) > 1e-5 or not torch.equal(out["cuda"]["image_hw"],
+                                                    out["cpu"]["image_hw"]):
+        fail(f"affine_sizes: the card differs from the CPU: {errors}")
+    moved = out["cuda"]["pts"] - torch.from_numpy(pts)
+    if torch.allclose(moved[0], moved[1]):
+        fail("affine_sizes: two sizes got one transform")
+    emit({"phase": "affine_sizes", "card": card, "sizes": sizes[:4].tolist(),
+          "errors_rel_to_max_vs_cpu": errors, "image_hw_out": out["cuda"]["image_hw"][0].tolist(),
+          "sync_free": True})
 
 
 # --------------------------------------------------------------------- #
@@ -971,7 +1040,8 @@ def input_idle_phase(dev, card: str):
     batches = 1 + 2 * IDLE_ITERS  # the first, the warm-up window, the timed window
     readings = {}
     for wire in ("yuv", "frames"):
-        pipe = build_pipeline(batch_size=8, device=dev, wire=wire, cache_dir=CACHE_DIR)
+        kw = {"decoder": WIRE_DECODER} if wire == "yuv" else {}
+        pipe = build_pipeline(batch_size=8, device=dev, wire=wire, cache_dir=CACHE_DIR, **kw)
         try:
             res, launches = count_launches(
                 lambda: measure_input_idle(pipe, 6, n_iters=IDLE_ITERS, width=64))
@@ -983,7 +1053,9 @@ def input_idle_phase(dev, card: str):
                  f"{batches} batches")
         readings[wire] = {"t_e2e_ms": res["t_e2e_s"] * 1e3, "t_comp_ms": res["t_comp_s"] * 1e3,
                           "idle": res["idle"], "input_bound_frac": stats["input_bound_frac"],
-                          "draw_gaussians_launches": launches}
+                          "draw_gaussians_launches": launches,
+                          **({"decoder": WIRE_DECODER, "decoded_by": stats["decoded_by"]}
+                             if wire == "yuv" else {})}
     emit({"phase": "input_idle", "card": card, "n_iters": IDLE_ITERS, **readings["yuv"],
           "frames": readings["frames"]})
 
@@ -1106,7 +1178,7 @@ def petr_phase(dev, card: str):
 
     batches = PETR_FRESH_STEPS + PETR_TIMED_STEPS + 1
     pipe = build_stream_pipeline(batch_size=8, device=dev, cache_dir=CACHE_DIR,
-                                 sampler_iterations=batches)
+                                 sampler_iterations=batches, decoder=WIRE_DECODER)
     trainer = StreamTrainer(stream_petr_model(), seed=0)
 
     def fed():
@@ -1156,6 +1228,7 @@ def petr_phase(dev, card: str):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+    decoded = pipe.stats()["decoded_by"]
     pipe.stop()
 
     cached = trainer.batch
@@ -1175,8 +1248,8 @@ def petr_phase(dev, card: str):
     emit({
         "phase": "petr", "card": card,
         "config": "PETRDetector(num_memory=64, motion_aware=True): 128 queries + 64 memory, dim "
-                  "128, 3 layers, 4 heads, 10 classes; 8 x 6 cams x 256x704 from the YUV wire in "
-                  "drive order (SequenceSampler, 160 drives x 40 frames); AdamW lr 2e-4 wd 1e-4; "
+                  "128, 3 layers, 4 heads, 10 classes; 8 x 6 cams x 256x704 from the YUV wire "
+                  f"(decoder {WIRE_DECODER!r}) in drive order (SequenceSampler, 160 drives x 40 frames); AdamW lr 2e-4 wd 1e-4; "
                   "max_gt 32",
         "losses": losses, "fed_step_device_ms": float(np.median(fed_ms)),
         "fed_step_device_ms_all": fed_ms, "fed_step_host_ms": fed_host_s * 1e3,
@@ -1184,7 +1257,7 @@ def petr_phase(dev, card: str):
         "cached_step_device_ms": float(np.median(cached_ms)), "cached_step_device_ms_all": cached_ms,
         "peak_memory_bytes": peak_bytes, "memory_ref_abs_sum_after_step_1": ref_after_1,
         "mAP": res["mAP"], "mAP_by_threshold": {k: v for k, v in res.items() if k.startswith("mAP@")},
-        "draw_gaussians_launches": launches, "sync_free_step": True,
+        "draw_gaussians_launches": launches, "sync_free_step": True, "decoded_by": decoded,
     })
     return trainer
 
@@ -1260,6 +1333,21 @@ def matching_edge_cases(dev):
         ("nan_costs", t(nan_costs(rng)), t(np.array([24, 24, 10], np.int32)), 60, 0.02),
         ("nan_costs_default_eps", t(nan_costs(rng)), t(np.array([24, 24, 10], np.int32)), 20,
          None),
+        # the list-driven round's risks: one bidder in a block of 8 warps; more
+        # bidders than warps and than lanes; equal bids on one column (the
+        # lowest row wins, the others bid again); R = C with more rows than
+        # lanes; zero values of both signs (equal floats, different bits)
+        ("lone_bidder", t(rng.normal(size=(2, 6, 70)).astype(np.float32)),
+         t(np.array([1, 1], np.int32)), 20000, None),
+        ("all_rows_bid", t(rng.normal(size=(2, 100, 120)).astype(np.float32)),
+         t(np.array([100, 77], np.int32)), 20000, None),
+        ("equal_bids_one_column",
+         t(np.tile(rng.normal(size=(2, 1, 12)).astype(np.float32), (1, 8, 1))),
+         t(np.array([8, 5], np.int32)), 20000, None),
+        ("r_eq_c_wide", t(rng.uniform(0, 10, (2, 96, 96)).astype(np.float32)),
+         t(np.array([96, 50], np.int32)), 20000, None),
+        ("signed_zeros", t(np.where(rng.random((2, 6, 9)) < 0.5, 0.0, -0.0).astype(np.float32)),
+         t(np.array([6, 4], np.int32)), 200, None),
     ]
 
 
@@ -1360,6 +1448,8 @@ def matching_phase(dev, flush, card: str, trainer):
             worst_bound = max(worst_bound, bound / max(abs(opt), 1e-6))
         readings[name] = dict(
             shape=[b, r, c], rounds=rounds.cpu().tolist(), bids=bids.cpu().tolist(), ms=ms,
+            us_per_round=ms * 1e3 / max(int(rounds.max()), 1),
+            ns_per_bid=ms * 1e6 / max(int(bids.sum()), 1),
             entry_ms=entry_ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=nbytes,
             operations=ops, scipy_host_ms=scipy_ms, gap_to_hungarian=worst_gap,
@@ -1383,6 +1473,86 @@ def matching_phase(dev, flush, card: str, trainer):
     return readings, launches
 
 
+def matched_loss_phase(dev, card: str):
+    """batched_loss_computation's full iteration at the example's width, with
+    matches from the CUDA auction inside the step and from the host loop."""
+    from accvlab_tpu_torch import batched_loss_computation as bl
+    from accvlab_tpu_torch.ragged import _auction_kernel
+
+    data = bl.make_data(device=dev)
+    head = bl.make_head(256, 10, seed=0, device=dev)
+    feat = torch.from_numpy(np.random.default_rng(1).normal(size=(8, 300, 256))
+                            .astype(np.float32)).to(dev)
+    args = (data["bboxes_gt"], data["classes_gt"], data["bboxes_pred"], data["logits_pred"])
+
+    def host_step():
+        return bl.train_step(head, feat, data, bl.match(*args))
+
+    def device_step():
+        return bl.train_step(head, feat, data)
+
+    # the device form's matches against the plain auction's, bitwise
+    got, want = bl.match_on_device(*args), bl.match_on_device(*args, implementation="torch")
+    torch.cuda.synchronize()
+    if not all(torch.equal(a.tensor, b.tensor) and torch.equal(a.sample_sizes, b.sample_sizes)
+               for a, b in zip(got, want)):
+        fail("matched_loss: the device form's matches differ from the plain auction's")
+    loss_host, loss_dev = float(host_step()[1]), float(device_step()[1])
+    if not abs(loss_dev - loss_host) <= 1e-5 * abs(loss_host):
+        fail(f"matched_loss: device-matched loss {loss_dev} against host-matched {loss_host}")
+
+    def timed(fn):
+        events, t0 = [], time.perf_counter()
+        for _ in range(MATCHED_STEPS):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            events.append((e0, e1))
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / MATCHED_STEPS * 1e3
+        return [a.elapsed_time(b) for a, b in events], host_ms
+
+    host_ms, host_wall = timed(host_step)
+    torch.cuda.synchronize()
+    _auction_kernel.reset_launch_counts()
+    dev_ms, dev_wall = timed(device_step)
+    launches = _auction_kernel.LAUNCHES["batched_auction_matching"]
+    if launches != MATCHED_STEPS:
+        fail(f"matched_loss: the auction launched {launches} times for {MATCHED_STEPS} steps")
+
+    # the device form makes no copy or wait between host and card; the host
+    # form reads the cost back
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        device_step()
+    except RuntimeError as e:
+        fail(f"matched_loss: the device-matched step synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        host_step()
+        host_syncs = False
+    except RuntimeError:
+        host_syncs = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    emit({"phase": "matched_loss", "card": card,
+          "config": "examples/batched_loss_computation.py make_data(seed=0): 8 x 48 GT x 300 "
+                    "predictions, 10 classes; linear head dim 256; SGD lr 1e-3",
+          "loss_device_matched": loss_dev, "loss_host_matched": loss_host,
+          "device_step_ms": float(np.median(dev_ms)), "device_step_ms_all": dev_ms,
+          "device_step_host_ms": dev_wall, "host_step_ms": float(np.median(host_ms)),
+          "host_step_ms_all": host_ms, "host_step_host_ms": host_wall,
+          "auction_launches": launches, "device_form_sync_free": True,
+          "host_form_synchronises": host_syncs})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -1391,7 +1561,7 @@ def main() -> int:
     from accvlab_tpu_torch import _native_build
     from accvlab_tpu_torch.heatmap import _kernel
     from accvlab_tpu_torch.hostcopy import native as hostcopy_native
-    from accvlab_tpu_torch.pipeline import wire_native
+    from accvlab_tpu_torch.pipeline import native_jpeg, wire_native
     from accvlab_tpu_torch.ragged import _auction_kernel
 
     smi = nvidia_smi_line()
@@ -1403,11 +1573,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     builds = [_kernel.library_path, _auction_kernel.library_path, hostcopy_native.library_path,
-              wire_native.library_path]
+              wire_native.library_path, native_jpeg.library_path]
     with ThreadPoolExecutor(max_workers=len(builds)) as ex:  # one compiler per source, together
         libs = list(ex.map(lambda f: f(), builds))
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": libs,
-          "compiler_seconds": _native_build.build_seconds})
+          "compiler_seconds": _native_build.build_seconds, "libjpeg": native_jpeg.LINKED})
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     replaces, results, entry_launches, n_golden = kernel_phase(dev, flush)
@@ -1416,12 +1586,14 @@ def main() -> int:
     main_frames_phase(dev, card)
     wire_phase(dev, card)
     echo_phase(dev, card)
+    affine_sizes_phase(dev, card)
     train_parity_phase(dev)
     train_phase(dev, card)
     input_idle_phase(dev, card)
     petr_parity_phase(dev)
     trainer = petr_phase(dev, card)
     matching, matching_launches = matching_phase(dev, flush, card, trainer)
+    loss_launches = matched_loss_phase(dev, card)
 
     kernels = []
     for k in KINDS:
@@ -1442,13 +1614,16 @@ def main() -> int:
         "name": "batched_auction_matching", "route": "cuda", "source": AUCTION_SOURCE,
         "replaces": "accvlab_tpu/ragged/matching.py:29 (auction_matching under vmap in "
                     "batched_auction_matching, an XLA while_loop; no Pallas kernel)",
-        "launches": matching_launches,
+        "launches": matching_launches + loss_launches,
         "max_abs_err": max(x["max_abs_err"] for x in matching.values()), "ms": m["ms"],
         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
         "library_ms": None, "entry_ms": m["entry_ms"], "rounds": m["rounds"], "bids": m["bids"],
         "shape": m["shape"],
+        "us_per_round": m["us_per_round"], "ns_per_bid": m["ns_per_bid"],
         "petr_shape_ms": matching["petr_32x192"]["ms"],
-        "launches_from": "matching phase (entry-point drive)",
+        "petr_shape_us_per_round": matching["petr_32x192"]["us_per_round"],
+        "launches_from": f"matching phase (entry-point drive, {matching_launches}) and "
+                         f"matched_loss (device-matched steps, {loss_launches})",
     })
     emit({"kernels": kernels})
     print(smi, flush=True)

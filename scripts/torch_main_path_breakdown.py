@@ -2,11 +2,13 @@
 
 Run from the repository root:
   python3 scripts/torch_main_path_breakdown.py [--wire yuv|frames] [--batches N]
+      [--decoder native|pil]
 
 Builds bench.py's multi-camera pipeline on the port
 (``accvlab_tpu_torch.bench_pipeline``: 6 x 372x1024, batch 8, out 256x704,
-heatmap 10x64x176) on the YUV 4:2:0 wire (q90 JPEGs decoded by PIL on the
-host, the plane codec, unpack + colour conversion on the card; the default)
+heatmap 10x64x176) on the YUV 4:2:0 wire (q90 JPEGs decoded on the host by
+``--decoder``, libjpeg at its DCT scale by default, the plane codec, unpack +
+colour conversion on the card; the default)
 or on raw RGB frames, and prints JSON lines:
 
 * ``serial``: each phase of one batch run alone, one after the other, with a
@@ -102,8 +104,8 @@ def per_call(name: str, into: dict):
     return record
 
 
-def serial_phase(batches: int, wire: str, num_threads) -> dict:
-    pipe = build_pipeline(batch_size=8, wire=wire, num_threads=num_threads)
+def serial_phase(batches: int, wire: str, num_threads, decoder: str) -> dict:
+    pipe = build_pipeline(batch_size=8, wire=wire, num_threads=num_threads, decoder=decoder)
     clock = {"mode": "host"}
     step_ms: dict = {}
     step_dev_ms: dict = {}
@@ -151,10 +153,10 @@ def serial_phase(batches: int, wire: str, num_threads) -> dict:
     }
 
 
-def pipelined_phase(batches: int, wire: str, num_threads):
+def pipelined_phase(batches: int, wire: str, num_threads, decoder: str):
     from torch.profiler import ProfilerActivity, profile
 
-    pipe = build_pipeline(batch_size=8, wire=wire, num_threads=num_threads)
+    pipe = build_pipeline(batch_size=8, wire=wire, num_threads=num_threads, decoder=decoder)
     for _ in range(3):
         pipe.run()
     torch.cuda.synchronize()
@@ -214,6 +216,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=10)
     ap.add_argument("--wire", choices=("yuv", "frames"), default="yuv")
+    ap.add_argument("--decoder", choices=("native", "pil"), default="native",
+                    help="the YUV wire's host decoder (ImageDecoder(decoder=))")
     ap.add_argument("--num-threads", type=int, default=None,
                     help="host-stage worker threads (build_pipeline's default: the core count)")
     ap.add_argument("--switch-interval", type=float, default=None,
@@ -227,9 +231,12 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     card = {"card": smi, "cpu_count": os.cpu_count(), "switch_interval_s": sys.getswitchinterval(),
-            "num_threads": args.num_threads}
-    emit({"phase": "serial", **card, **serial_phase(args.batches, args.wire, args.num_threads)})
-    pipelined, top = pipelined_phase(args.batches, args.wire, args.num_threads)
+            "num_threads": args.num_threads,
+            "decoder": args.decoder if args.wire == "yuv" else None}
+    emit({"phase": "serial", **card, **serial_phase(args.batches, args.wire, args.num_threads,
+                                                   args.decoder)})
+    pipelined, top = pipelined_phase(args.batches, args.wire, args.num_threads,
+                                     args.decoder)
     emit({"phase": "pipelined", **card, **pipelined})
     emit({"phase": "top_device_ops", **card, "ops": top})
     return 0

@@ -16,6 +16,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "accvlab_tpu_torch")
 SUBPACKAGES = [
     "accvlab_tpu_torch",
+    "accvlab_tpu_torch.batched_loss_computation",
     "accvlab_tpu_torch.bench_pipeline",
     "accvlab_tpu_torch.color",
     "accvlab_tpu_torch.heatmap",
@@ -33,6 +34,7 @@ COPIED_CSRC = [
     ("hostcopy/csrc/pack.cpp", "accvlab_tpu/hostcopy/csrc/pack.cpp"),
     ("pipeline/csrc/wirepack.cpp", "accvlab_tpu/pipeline/csrc/wirepack.cpp"),
     ("pipeline/csrc/simd_bitplane.h", "accvlab_tpu/pipeline/csrc/simd_bitplane.h"),
+    ("pipeline/csrc/jpegdec.cpp", "accvlab_tpu/pipeline/csrc/jpegdec.cpp"),
 ]
 
 
@@ -103,6 +105,7 @@ def _entry_points():
     from accvlab_tpu_torch.heatmap import draw_gaussians, draw_heatmap, draw_heatmap_batched
     from accvlab_tpu_torch.hostcopy import start_copy
     from accvlab_tpu_torch.models import make_petr_example_batch
+    from accvlab_tpu_torch.batched_loss_computation import make_data, make_head
     from accvlab_tpu_torch.ragged import RaggedBatch, auction_matching, batched_auction_matching
 
     z = np.zeros
@@ -124,6 +127,8 @@ def _entry_points():
             z((1, 2, 3), np.float32), np.ones(1, np.int32), **kw),
         "make_petr_example_batch": lambda **kw: make_petr_example_batch(hw=(8, 8), **kw),
         "build_stream_pipeline": lambda **kw: _tiny_pipeline(stream=True, **kw),
+        "make_data": lambda **kw: make_data(batch_size=1, max_gt=4, num_pred=6, **kw),
+        "make_head": lambda **kw: make_head(dim=4, **kw),
     }
 
 
@@ -142,7 +147,7 @@ def _tiny_pipeline(stream=False, **kw):
 @pytest.mark.parametrize("name", ["draw_heatmap", "draw_heatmap_batched", "draw_gaussians",
                                   "start_copy", "get_pipeline", "auction_matching",
                                   "batched_auction_matching", "make_petr_example_batch",
-                                  "build_stream_pipeline"])
+                                  "build_stream_pipeline", "make_data", "make_head"])
 def test_entry_points_default_to_cuda(name):
     fn = _entry_points()[name]
     if torch.cuda.is_available():

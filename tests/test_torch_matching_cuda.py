@@ -27,7 +27,8 @@ def cuda():
 
 
 EDGE_NAMES = ["c1", "no_valid_rows", "integer_ties", "unconverged", "r_eq_c", "cost_through_l2",
-              "nan_costs", "nan_costs_default_eps"]
+              "nan_costs", "nan_costs_default_eps", "lone_bidder", "all_rows_bid",
+              "equal_bids_one_column", "r_eq_c_wide", "signed_zeros"]
 
 
 @pytest.mark.cuda

@@ -412,3 +412,100 @@ def test_build_pipeline_wire_choices():
         build_pipeline(device="cpu", wire="dct")
     with pytest.raises(ValueError, match="wire must be"):
         build_pipeline(device="cpu", wire="png")
+
+
+# ------------------------- the native decoder --------------------------- #
+
+#: the decoder the JAX package's rule picks for each case and wire format
+#: (image_decoder.py:121-190): PIL for PNG, for a CMYK JPEG, for an odd
+#: yuv420 size without an even resize target and for a yuv420 scale hint
+AUTO_PIL = {("png", "rgb"), ("png", "yuv420"), ("jpeg_odd", "yuv420"),
+            ("jpeg_hint", "yuv420"), ("jpeg_cmyk", "rgb"), ("jpeg_cmyk", "yuv420")}
+
+
+def encode_cmyk(img):
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).convert("CMYK").save(buf, format="JPEG", quality=90)
+    return np.frombuffer(buf.getvalue(), np.uint8).copy()
+
+
+AUTO_CASES = dict(DECODE_CASES, jpeg_cmyk=(lambda: encode_cmyk(smooth_image((32, 48), 6)), {}))
+
+
+def _decode_port(step, encoded):
+    sdg = SampleDataGroup()
+    sdg.add_data_field("image", DType.UINT8)
+    sdg["image"] = encoded
+    out = step(sdg)
+    return {n: np.asarray(v) for n, v in zip(out.field_names_flat, out.get_data())}
+
+
+def _decode_jax(encoded, **kw):
+    sdg = jpipe.SampleDataGroup()
+    sdg.add_data_field("image", jpipe.DType.UINT8)
+    sdg["image"] = encoded
+    out = jsteps.ImageDecoder("image", **kw)(sdg)
+    return {n: np.asarray(v) for n, v in zip(out.field_names_flat, out.get_data())}
+
+
+@pytest.mark.parametrize("wire_format", ["rgb", "yuv420"])
+@pytest.mark.parametrize("case", sorted(AUTO_CASES))
+def test_decoder_auto_planes_equal_jax_native_path(case, wire_format):
+    """Nothing patched: both packages take their libjpeg decoder where the
+    JAX rule says so, and PIL elsewhere; the planes are bitwise equal and the
+    port counts the decoder it took."""
+    assert jnative_jpeg.available()
+    make, kw = AUTO_CASES[case]
+    encoded = make()
+    step = ImageDecoder("image", decoder="auto", wire_format=wire_format, **kw)
+    got, want = _decode_port(step, encoded), _decode_jax(encoded, wire_format=wire_format, **kw)
+    assert list(got) == list(want)
+    for name in want:
+        assert got[name].dtype == want[name].dtype and got[name].shape == want[name].shape
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    took = "pil" if (case, wire_format) in AUTO_PIL else "native"
+    assert step.decoded_by == {"native": int(took == "native"), "pil": int(took == "pil")}
+    native = ImageDecoder("image", decoder="native", wire_format=wire_format,
+                          **({} if (case, wire_format) == ("jpeg_hint", "yuv420") else kw))
+    if took == "native":
+        for name, v in _decode_port(native, encoded).items():
+            np.testing.assert_array_equal(v, want[name], err_msg=name)
+        assert native.decoded_by == {"native": 1, "pil": 0}
+    elif case != "jpeg_hint":
+        with pytest.raises(ValueError, match="decoder='native'"):
+            _decode_port(native, encoded)
+
+
+def test_decoder_choice_is_checked_and_native_needs_its_library(monkeypatch):
+    from accvlab_tpu_torch.pipeline import native_jpeg
+
+    with pytest.raises(ValueError, match="decoder must be"):
+        ImageDecoder("image", decoder="turbo")
+    with pytest.raises(ValueError, match="decode_resize_hw"):
+        ImageDecoder("image", decoder="native", wire_format="yuv420",
+                     decode_scale_hint_hw=(64, 64))
+    monkeypatch.setattr(native_jpeg, "available", lambda: False)
+    monkeypatch.setattr(native_jpeg, "build_error", lambda: "no libjpeg (test)")
+    with pytest.raises(RuntimeError, match="no libjpeg"):
+        ImageDecoder("image", decoder="native")
+    step = ImageDecoder("image", decoder="auto", wire_format="yuv420")
+    got = _decode_port(step, DECODE_CASES["jpeg"][0]())
+    assert step.decoded_by == {"native": 0, "pil": 1} and got["image"].shape == (32, 48)
+
+
+@pytest.mark.parametrize("decoder", ["native", "pil"])
+def test_wire_pipeline_reports_its_decoder(decoder):
+    pipe = build_pipeline(batch_size=BATCH, device="cpu", num_threads=2, hw=HW, num_cams=CAMS,
+                          out_hw=OUT_HW, heatmap_hw=HM_HW, num_samples=SAMPLES, num_unique=2,
+                          wire="yuv", decoder=decoder)
+    try:
+        pipe.run()
+        pipe.run()
+        counts = pipe.stats()["decoded_by"]
+    finally:
+        pipe.stop()
+    frames = (2 + pipe._depth) * BATCH * CAMS  # the prefetch ring may have built more
+    assert counts[decoder] >= 2 * BATCH * CAMS and sum(counts.values()) <= frames
+    assert counts["pil" if decoder == "native" else "native"] == 0
