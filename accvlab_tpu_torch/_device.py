@@ -60,3 +60,20 @@ def device_of(value, device: DeviceLike = None) -> torch.device:
             )
         return value.device
     return resolve_device(device)
+
+
+class F32MatmulScope:
+    """Float32 matrix products in full precision (TF32 off), as the JAX
+    package's ``Precision.HIGHEST``: the executor's device stage and the DCT
+    wire's decode run under it. The caller's settings are restored
+    afterwards."""
+
+    def __enter__(self):
+        self._tf32 = torch.backends.cuda.matmul.allow_tf32
+        self._prec = torch.get_float32_matmul_precision()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32 = self._tf32
+        torch.set_float32_matmul_precision(self._prec)

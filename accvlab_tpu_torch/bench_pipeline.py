@@ -1,25 +1,30 @@
 """The headline multi-camera pipeline of ``bench.py``, built on the port.
 
-``bench.py:130-269`` on its YUV wire (the DCT wire is not ported yet):
-bench.py's dataset of 6 cameras of 372x1024 q90 JPEGs with 32
-boxes of 10 classes each (16 unique frame sets), batches of 8 read through
-``ShuffledShardedInputCallable``, and the **YUV 4:2:0 pixel wire**:
+``bench.py:130-269``: bench.py's dataset of 6 cameras of 372x1024 q90 JPEGs
+with 32 boxes of 10 classes each (16 unique frame sets), batches of 8 read
+through ``ShuffledShardedInputCallable``, and one of three wires:
 
-* host: ``ImageDecoder(decode_resize_hw=out_hw, wire_format="yuv420",
-  decoder=decoder)`` (libjpeg at its 6/8 DCT scale with ``"native"``, as
-  bench.py where libjpeg builds; PIL with ``"pil"``), then
-  ``WirePlanePacker`` on the Y and CbCr planes;
-* one packed transfer per batch;
-* device: ``WirePlaneUnpacker`` -> ``YCbCrToRGBConverter`` ->
-  ``AffineTransformer`` -> ``PhotoMetricDistorter`` ->
-  ``BoundingBoxToHeatmapConverter`` (the CUDA rasterizer) ->
-  ``ImageMeanStdDevNormalizer``.
+* ``wire="dct"`` (the default, as in bench.py): the **DCT wire**. The host
+  runs only the JPEG entropy decode and packs the quantized coefficients
+  (``DCTWirePacker``, libjpeg + ``csrc/dctpack.cpp``); the card decodes
+  them (``DCTWireUnpacker``: unpack, IDCT, resize). The band grouping is
+  ``grouping=``, by default ``"dp16"``: :func:`optimize_band_groups` over 3
+  of the provider's JPEGs with at most 16 groups, as bench.py computes it
+  at setup. Without the native libjpeg decoder this wire raises, where
+  bench.py falls back quietly to the YUV wire;
+* ``wire="yuv"``: the **YUV 4:2:0 pixel wire**. The host decodes
+  (``ImageDecoder(decode_resize_hw=out_hw, wire_format="yuv420",
+  decoder=decoder)``: libjpeg at its 6/8 DCT scale with ``"native"``, PIL
+  with ``"pil"``) and packs the planes (``WirePlanePacker``); the card
+  unpacks them (``WirePlaneUnpacker``);
+* ``wire="frames"``: raw RGB frames of the same structured noise (no
+  decoder, no wire codec), the path of the earlier slices and of
+  :func:`~.train_centernet_e2e.build_train_pipeline`.
 
-``wire="frames"`` feeds raw RGB frames of the same structured noise instead
-(no decoder, no wire codec), the path of the earlier slices and of
-:func:`~.train_centernet_e2e.build_train_pipeline`. ``wire="dct"`` raises
-until the DCT wire is ported (ROADMAP.md), where bench.py falls back
-quietly to the YUV wire.
+One packed transfer per batch; then, on the card: ``YCbCrToRGBConverter``
+(after either JPEG wire) -> ``AffineTransformer`` ->
+``PhotoMetricDistorter`` -> ``BoundingBoxToHeatmapConverter`` (the CUDA
+rasterizer) -> ``ImageMeanStdDevNormalizer``.
 
 ``measure_input_idle`` is ``bench.py:272-361``: the share of a CenterNet
 training loop fed by that pipeline that the card waits for input.
@@ -33,8 +38,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ._device import resolve_device
 from .models.centernet import CenterNetDetector, adam, init_params
-from .pipeline import PipelineDefinition
+from .pipeline import PipelineDefinition, native_jpeg
 from .pipeline.inputs import (
     MultiCameraJpegProvider,
     MultiCameraSyntheticProvider,
@@ -45,17 +51,40 @@ from .pipeline.inputs import (
 from .pipeline.processing_steps import (
     AffineTransformer,
     BoundingBoxToHeatmapConverter,
+    DCTWirePacker,
+    DCTWireUnpacker,
     ImageDecoder,
     ImageMeanStdDevNormalizer,
     PhotoMetricDistorter,
     WirePlanePacker,
     WirePlaneUnpacker,
     YCbCrToRGBConverter,
+    optimize_band_groups,
 )
 
 #: unique frame sets per wire: bench.py's 16 JPEG sets; the 2 raw-frame sets
 #: that the earlier slices measured
-NUM_UNIQUE = {"yuv": 16, "frames": 2}
+NUM_UNIQUE = {"dct": 16, "yuv": 16, "frames": 2}
+#: the DCT wire's static band groupings (``dct_wire.band_groups``)
+STATIC_GROUPINGS = ("split12", "band", "diag8")
+
+
+def dct_grouping(grouping, provider, source_hw, out_hw):
+    """The DCT wire's band grouping from ``build_pipeline``'s ``grouping=``:
+    ``"dpN"`` is :func:`optimize_band_groups` over camera 0's JPEGs of the
+    provider's first 3 samples with at most N groups (bench.py:186-205);
+    ``"split12"``, ``"band"`` and ``"diag8"`` and explicit ``(start, end)``
+    pairs pass through. Anything else raises ``ValueError`` (bench.py falls
+    back to ``"split12"``)."""
+    if not isinstance(grouping, str):
+        return tuple((int(a), int(b)) for a, b in grouping)
+    if grouping in STATIC_GROUPINGS:
+        return grouping
+    if grouping.startswith("dp") and grouping[2:].isdigit():
+        probe = [provider.jpeg(i, 0) for i in range(3)]
+        return optimize_band_groups(probe, source_hw, out_hw, max_groups=int(grouping[2:]))
+    raise ValueError(f"grouping must be 'dpN' (e.g. 'dp16'), one of {STATIC_GROUPINGS} or "
+                     f"(start, end) pairs, got {grouping!r}")
 
 
 def headline_steps(out_hw=(256, 704), heatmap_hw=(64, 176), num_classes: int = 10,
@@ -107,15 +136,19 @@ def build_pipeline(batch_size: int = 8, device=None, num_threads: Optional[int] 
                    out_hw=(256, 704), heatmap_hw=(64, 176), num_samples: int = 6400,
                    num_unique: Optional[int] = None, affine_prob: float = 0.5,
                    photometric_prob: float = 0.5, heatmap_implementation: str = "auto",
-                   seed: int = 0, hw_out_name: Optional[str] = None, wire: str = "yuv",
+                   seed: int = 0, hw_out_name: Optional[str] = None, wire: str = "dct",
                    wire_pack: bool = True, echo_factor: int = 1,
                    cache_dir: Optional[str] = None, sampler: Optional[SamplerBase] = None,
-                   sampler_iterations: int = 1024, decoder: str = "pil"):
+                   sampler_iterations: int = 1024, decoder: str = "pil",
+                   grouping="dp16"):
     """bench.py's pipeline on the port (``device`` defaults to the card).
 
-    ``wire``: ``"yuv"`` (bench.py's YUV 4:2:0 wire) or ``"frames"``
-    (raw RGB frames); ``"dct"`` raises. ``wire_pack=False`` ships the YUV
-    planes without the plane codec. ``num_unique`` defaults to
+    ``wire``: ``"dct"`` (the default), ``"yuv"`` or ``"frames"`` (module
+    docstring). ``grouping``: the DCT wire's band grouping, ``"dpN"``,
+    ``"split12"``, ``"band"``, ``"diag8"`` or ``(start, end)`` pairs
+    (:func:`dct_grouping`); the chosen groups are the packer's ``groups``.
+    ``wire_pack=False`` ships the YUV planes without the plane codec;
+    ``decoder`` is the YUV wire's host decoder. ``num_unique`` defaults to
     :data:`NUM_UNIQUE` of the wire. ``cache_dir`` keeps the encoded JPEGs in
     bench.py's cache format there (``multicam_jpeg.bench_jpegs``).
     ``sampler`` replaces bench.py's shuffled reads with a
@@ -123,20 +156,28 @@ def build_pipeline(batch_size: int = 8, device=None, num_threads: Optional[int] 
     ``SequenceSampler``, drive order), built for ``sampler_iterations``
     batches plus the prefetch ring's 2.
     """
-    if wire == "dct":
-        raise ValueError(
-            "wire='dct' (the JPEG DCT-coefficient wire) is not ported yet: it comes "
-            "after the native libjpeg decoder (ROADMAP.md); use wire='yuv'"
-        )
     if wire not in NUM_UNIQUE:
-        raise ValueError(f"wire must be 'yuv' or 'frames', got {wire!r}")
+        raise ValueError(f"wire must be one of {tuple(NUM_UNIQUE)}, got {wire!r}")
+    device = resolve_device(device)
+    if wire == "dct" and not native_jpeg.available():
+        raise RuntimeError(
+            "wire='dct' needs the native libjpeg decoder, which did not build "
+            f"({native_jpeg.build_error()}); pass wire='yuv' with decoder='pil' for the pixel "
+            "wire (nothing falls back to it quietly)"
+        )
     if num_threads is None:
         num_threads = max(2, os.cpu_count() or 4)
     if num_unique is None:
         num_unique = NUM_UNIQUE[wire]
-    if wire == "yuv":
+    if wire != "frames":
         provider = MultiCameraJpegProvider(num_samples=num_samples, num_unique=num_unique,
                                            hw=hw, num_cams=num_cams, cache_dir=cache_dir)
+    if wire == "dct":
+        groups = dct_grouping(grouping, provider, hw, out_hw)
+        steps = [DCTWirePacker("image", source_hw=hw, out_hw=out_hw, grouping=groups),
+                 DCTWireUnpacker("image", source_hw=hw, out_hw=out_hw, grouping=groups),
+                 YCbCrToRGBConverter("image")]
+    elif wire == "yuv":
         steps = [ImageDecoder("image", decode_resize_hw=out_hw, wire_format="yuv420",
                               decoder=decoder)]
         if wire_pack:  # bench.py's ACCVLAB_BENCH_WIRE_PACK

@@ -102,3 +102,8 @@ class MultiCameraJpegProvider(DataProvider):
 
     def get_number_of_samples(self) -> int:
         return self._num_samples
+
+    def jpeg(self, sample_index: int, cam: int = 0) -> np.ndarray:
+        """The JPEG bytes of camera ``cam`` in sample ``sample_index``, as
+        :meth:`get_data` fills them (without drawing the boxes)."""
+        return self._jpegs[(sample_index * self._num_cams + cam) % len(self._jpegs)]

@@ -98,3 +98,30 @@ def warp_affine(
         out = torch.clamp(torch.round(out), info.min, info.max)
     out = out.to(img.dtype)
     return out[..., 0] if squeeze else out
+
+
+def linear_resize_matrix(in_size: int, out_size: int) -> torch.Tensor:
+    """``(out_size, in_size)`` float32 weights of a linear resize along one
+    axis: what ``jax.image.resize(method="linear", antialias=False)``
+    computes (``jax._src.image.scale.compute_weight_mat``, transposed), so
+    that ``out = W @ x`` along that axis.
+
+    Half-pixel sampling (``sample = (i + 0.5) * in/out - 0.5``), the triangle
+    kernel ``max(0, 1 - |sample - j|)`` unscaled (no antialias), each
+    output's weights divided by their sum, and zeroed where the sample lies
+    outside ``[-0.5, in_size - 0.5]``, in float32 in the same order. Equal
+    sizes give the identity. Built on the CPU; move it to the device once.
+    """
+    in_size, out_size = int(in_size), int(out_size)
+    # JAX: scale = out / in in float64, its inverse rounded to float32
+    inv_scale = torch.tensor(1.0 / (out_size / in_size), dtype=torch.float32)
+    sample = (torch.arange(out_size, dtype=torch.float32) + 0.5) * inv_scale - 0.5
+    x = torch.abs(sample[None, :] - torch.arange(in_size, dtype=torch.float32)[:, None])
+    weights = torch.clamp(1 - torch.abs(x), min=0.0)  # (in, out)
+    total = torch.sum(weights, dim=0, keepdim=True)
+    eps = float(np.finfo(np.float32).eps)
+    weights = torch.where(torch.abs(total) > 1000.0 * eps,
+                          weights / torch.where(total != 0, total, torch.ones_like(total)),
+                          torch.zeros_like(weights))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], weights, torch.zeros_like(weights)).T.contiguous()

@@ -42,7 +42,7 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import F32MatmulScope, resolve_device
 from .dtypes import DType
 from .inputs.base import CallableBase, IterableBase, SampleInfo
 from .processing_steps.pipeline_step_base import BatchLevelStepBase, PipelineStepBase
@@ -73,21 +73,6 @@ def _split_steps(steps: Sequence[PipelineStepBase]):
                 "host/device boundary (a device-placed step precedes it)."
             )
     return host_steps, device_steps
-
-
-class _F32MatmulScope:
-    """Float32 matrix products in full precision (TF32 off) for the device
-    stage; the caller's settings are restored afterwards."""
-
-    def __enter__(self):
-        self._tf32 = torch.backends.cuda.matmul.allow_tf32
-        self._prec = torch.get_float32_matmul_precision()
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.set_float32_matmul_precision("highest")
-
-    def __exit__(self, *exc):
-        torch.backends.cuda.matmul.allow_tf32 = self._tf32
-        torch.set_float32_matmul_precision(self._prec)
 
 
 class PipelineDefinition:
@@ -437,7 +422,7 @@ class TorchPipeline:
         key = (self._seed, batch_idx) if self._echo_factor == 1 else (self._seed, batch_idx,
                                                                          echo_i)
         ctx = DeviceRandomContext(key, device=self._device)
-        with _F32MatmulScope():
+        with F32MatmulScope():
             for step in self._device_steps:
                 step.set_random_context(ctx)
                 sdg = step(sdg) if self._check else step._process(sdg)

@@ -38,7 +38,7 @@ NUM_DRIVES = 160
 
 def build_stream_pipeline(batch_size: int = 8, num_drives: int = NUM_DRIVES,
                           drive_length: int = DRIVE_LENGTH, seed: int = 0,
-                          sampler_iterations: int = 1024, **kwargs):
+                          sampler_iterations: int = 1024, wire: str = "yuv", **kwargs):
     """bench.py's pipeline (the other arguments of
     :func:`~.bench_pipeline.build_pipeline`; the YUV wire by default) over a
     ``SequenceSampler(total_batch_size=batch_size, sequence_lengths=
@@ -48,7 +48,7 @@ def build_stream_pipeline(batch_size: int = 8, num_drives: int = NUM_DRIVES,
                               sequence_lengths=[drive_length] * num_drives, seed=seed)
     return build_pipeline(batch_size=batch_size, num_samples=num_drives * drive_length,
                           seed=seed, sampler=sampler, sampler_iterations=sampler_iterations,
-                          **kwargs)
+                          wire=wire, **kwargs)
 
 
 def batch_to_petr_inputs(batch: Dict[str, torch.Tensor], num_cams: int = 6) -> torch.Tensor:

@@ -5,9 +5,10 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each printing one JSON line (a failing phase exits non-zero):
 
 1. header  — card name and power limit (nvidia-smi), torch and CUDA versions;
-2. build   — the host packer, the wire encoder and the native JPEG decoder
-             (g++; the decoder linked with the system's libjpeg.so.62 or, on
-             a host without one, Pillow's libjpeg-turbo, named in the line),
+2. build   — the host packer, the wire encoder, the DCT band encoder and
+             the native JPEG decoder (g++; the decoder linked with the
+             system's libjpeg.so.62 or, on a host without one, Pillow's
+             libjpeg-turbo, named in the line),
              the CUDA rasterizer and the CUDA auction (nvcc, sm_90a),
              compiled in parallel into accvlab_tpu_torch/_build/;
 3. kernels — the rasterizer through each entry point (draw_heatmap_batched,
@@ -23,27 +24,41 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              call under torch.cuda.set_sync_debug_mode("error"), which fails
              on any copy or wait between host and card;
 4. main    — bench.py's multi-camera pipeline on the port at full width, on
-             bench.py's YUV 4:2:0 wire (6 x 372x1024 q90 JPEG, 16 unique
-             frame sets, decoded by WIRE_DECODER (libjpeg at its 6/8 DCT
-             scale, straight to 256x704 planes; the line counts the frames
-             each decoder took) and the plane codec on the host, unpack +
-             colour conversion on the card; batch 8,
-             heatmap 10x64x176, T=32) through run(): 2 warm-up batches, then
-             3 timed windows of 100 batches (frames/s per window and their
-             median); bytes per batch and the packer's choices; outputs
-             checked, one batch recomputed with the plain heatmap version
-             and compared;
+             bench.py's default DCT wire (6 x 372x1024 q90 JPEG, 16 unique
+             frame sets; the host entropy-decodes with libjpeg and packs the
+             quantized coefficients with dctpack.cpp in the "dp16" band
+             grouping; the card unpacks them, runs the IDCT and the resize,
+             then the colour conversion; batch 8, heatmap 10x64x176, T=32)
+             through run(): 2 warm-up batches, then 3 timed windows of 100
+             batches (frames/s per window and their median); bytes per batch,
+             the grouping and the packer's choices and host seconds; outputs
+             checked, one batch recomputed with the plain heatmap version and
+             compared;
+   main_yuv — one window of 100 batches of the same pipeline on the YUV
+             4:2:0 wire (decoded by WIRE_DECODER, libjpeg at its 6/8 DCT scale,
+             straight to 256x704 planes; the line counts the frames each
+             decoder took; the plane codec on the host, unpack + colour
+             conversion on the card), outputs checked;
 5. main_frames — one window of 100 batches of the same pipeline on raw RGB
              frames (the earlier slices' path), for a same-call comparison;
-6. wire    — one host batch decoded on the card, bitwise equal to the
-             unpacked planes and to the CPU decode; the RGB of the packed
-             and the unpacked wire bitwise equal (augmentation off); the
-             colour conversion on the card within 1 of the CPU's, with the
-             share that differs; unpack + convert under the sync check;
-7. echo    — echo_factor=2 on the wire: delivered batches twice the
-             transfers, the replays of a host batch different, delivered
-             frames/s; a mid-echo get_state, a fresh pipeline and set_state
-             continue bitwise for 3 batches;
+   dct_wire — one full-width host batch of the DCT wire decoded on the card
+             and on the CPU: the integer coefficients (after the exceptions,
+             the DC predictor, de-zigzag and dequantise) bitwise equal, the
+             planes within 1 (the share that differs printed); the whole
+             unpack step under torch.cuda.set_sync_debug_mode("error"); its
+             device ms per batch (CUDA events, the stream held by a sleep
+             while the host enqueues, median of 50) and its kernel launches
+             per batch (torch.profiler);
+6. wire    — one host batch of the YUV wire decoded on the card, bitwise
+             equal to the unpacked planes and to the CPU decode; the RGB of
+             the packed and the unpacked wire bitwise equal (augmentation
+             off); the colour conversion on the card within 1 of the CPU's,
+             with the share that differs; unpack + convert under the sync
+             check;
+7. echo    — echo_factor=2 on the YUV and on the DCT wire: delivered batches
+             twice the transfers, the replays of a host batch different,
+             delivered frames/s; a mid-echo get_state, a fresh pipeline and
+             set_state continue bitwise for 3 batches;
 8. train_parity — a seeded CenterNet (width 64) on make_example_batch, on
              the card and on the CPU (the port's plain path): loss, heads
              and parameter gradients within the bf16 tolerances stated in
@@ -64,9 +79,9 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              of the bf16 peak), then one step under
              torch.cuda.set_sync_debug_mode("error");
 10. input_idle — bench_pipeline.measure_input_idle(pipe, 6, n_iters=50,
-             width=64) on the YUV wire (WIRE_DECODER, with its counts) and on
-             raw frames: t_e2e, t_comp, idle and the pipeline's
-             input_bound_frac of each;
+             width=64) on the YUV wire (WIRE_DECODER, with its counts), on
+             raw frames and on the DCT wire: t_e2e, t_comp, idle and the
+             pipeline's input_bound_frac of each;
 11. petr_parity — the full-width motion-aware streaming PETR (128 queries,
              64 memory slots, dim 128, 3 layers) with the same weights
              (numpy arrays through load_jax_params) on the card and on the
@@ -100,7 +115,7 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
 15. the {"kernels": [...]} line, the nvidia-smi line, and last the result
    line {"ok": true, "device": {...}}.
 
-The pipeline phases (main, main_frames, echo, train, input_idle, petr) each count
+The pipeline phases (main, main_yuv, main_frames, echo, train, input_idle, petr) each count
 the rasterizer's launches from 0 and fail unless it ran once per delivered
 pipeline batch. The encoded JPEGs are kept in build/bench_cache (bench.py's
 cache format) for the phases after the first.
@@ -128,6 +143,8 @@ F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # products, one 2Sum and 3 additions
 EXACT_EXP_FLOPS = 282
 SLEEP_CYCLES = 4_000_000  # about 2 ms of the card's clock: longer than any enqueue here
+# about 20 ms of the card's clock: longer than the host takes to enqueue the DCT decode
+DECODE_SLEEP_CYCLES = 40_000_000
 N_TIMED = 50
 N_TIMED_PLAIN = 10
 MAIN_WINDOWS = 3
@@ -558,67 +575,84 @@ def timed_windows(pipe, windows: int, batches: int):
 
 
 def packer_of(pipe):
-    from accvlab_tpu_torch.pipeline.processing_steps import WirePlanePacker
+    from accvlab_tpu_torch.pipeline.processing_steps import DCTWirePacker, WirePlanePacker
 
-    return next(s for s in pipe._host_steps if isinstance(s, WirePlanePacker))
+    return next(s for s in pipe._host_steps if isinstance(s, (DCTWirePacker, WirePlanePacker)))
 
 
-def main_phase(dev, card: str):
+def main_phase(dev, card: str, wire: str = "dct"):
+    """The main path on ``wire`` ("dct": the phase ``main``, 3 windows and
+    the plain heatmap recompute; "yuv": ``main_yuv``, one window)."""
     from accvlab_tpu_torch.bench_pipeline import build_pipeline
     from accvlab_tpu_torch.heatmap import LAUNCHES, reset_launch_counts
 
     batch, num_cams = 8, 6
+    kw = dict(batch_size=batch, device=dev, cache_dir=CACHE_DIR, wire=wire)
+    if wire == "yuv":
+        kw["decoder"] = WIRE_DECODER
+    windows = MAIN_WINDOWS if wire == "dct" else 1
+    phase = "main" if wire == "dct" else f"main_{wire}"
     t0 = time.perf_counter()
-    pipe = build_pipeline(batch_size=batch, device=dev, cache_dir=CACHE_DIR,
-                          decoder=WIRE_DECODER)
+    pipe = build_pipeline(**kw)
     setup_s = time.perf_counter() - t0
     first = {k: v.clone() for k, v in pipe.run().items()}  # batch 0, kept for the plain recompute
     pipe.run()
     torch.cuda.synchronize()
 
-    # MAIN_WINDOWS back-to-back windows of MAIN_WINDOW_BATCHES batches each,
-    # on one pipeline: frames/s is reported per window, with their median
+    # back-to-back windows of MAIN_WINDOW_BATCHES batches each, on one
+    # pipeline: frames/s is reported per window, with their median
     reset_launch_counts()
-    window_s, out = timed_windows(pipe, MAIN_WINDOWS, MAIN_WINDOW_BATCHES)
-    n_batches = MAIN_WINDOWS * MAIN_WINDOW_BATCHES
+    window_s, out = timed_windows(pipe, windows, MAIN_WINDOW_BATCHES)
+    n_batches = windows * MAIN_WINDOW_BATCHES
     launches = LAUNCHES["draw_gaussians"]
     main_launches = dict(LAUNCHES)
     stats = pipe.stats()
-    wire_stats = packer_of(pipe).last_batch_stats
+    packer = packer_of(pipe)
+    wire_stats = packer.last_batch_stats
     pipe.stop()
     if launches != n_batches:
-        fail(f"main path: draw_gaussians launched {launches} times for {n_batches} batches")
+        fail(f"{phase}: draw_gaussians launched {launches} times for {n_batches} batches")
     check_outputs(out, num_cams, batch)
     check_outputs(first, num_cams, batch)
-    decoded = stats["decoded_by"]
-    if decoded[WIRE_DECODER] == 0 or sum(decoded.values()) != decoded[WIRE_DECODER]:
-        fail(f"main path: frames decoded by {decoded}, not all by {WIRE_DECODER}")
+    extra = {}
+    if wire == "yuv":
+        decoded = stats["decoded_by"]
+        if decoded[WIRE_DECODER] == 0 or sum(decoded.values()) != decoded[WIRE_DECODER]:
+            fail(f"{phase}: frames decoded by {decoded}, not all by {WIRE_DECODER}")
+        extra = {"decoder": WIRE_DECODER, "decoded_by": decoded}
+    else:
+        extra = {"grouping": [list(g) for g in packer.groups],
+                 "packer_seconds": packer.last_batch_seconds}
     if not 0 < stats["bytes_per_batch"] < UNPACKED_PLANE_BYTES:
-        fail(f"main path: {stats['bytes_per_batch']} bytes per batch, not below the "
+        fail(f"{phase}: {stats['bytes_per_batch']} bytes per batch, not below the "
              f"{UNPACKED_PLANE_BYTES} bytes of the unpacked planes")
 
-    # batch 0 again, with the plain heatmap version: same host batch, same draws
-    plain_pipe = build_pipeline(batch_size=batch, device=dev, heatmap_implementation="torch",
-                                cache_dir=CACHE_DIR, decoder=WIRE_DECODER)
-    plain = plain_pipe.run()
-    torch.cuda.synchronize()
-    plain_pipe.stop()
     worst = {}
-    for name, v in first.items():
-        w = plain[name]
-        if name.endswith("heatmap"):
-            ok = torch.allclose(v, w, rtol=1e-6, atol=0.0)
-        else:
-            ok = torch.equal(v, w)
-        if not ok:
-            fail(f"main path: {name} differs between the kernel and the plain heatmap version")
-        if v.dtype.is_floating_point:
-            worst[name.split(".")[-1]] = max(worst.get(name.split(".")[-1], 0.0),
-                                             float((v - w).abs().max()))
+    if wire == "dct":
+        # batch 0 again, with the plain heatmap version: same host batch, same draws
+        plain_pipe = build_pipeline(heatmap_implementation="torch", **kw)
+        plain = plain_pipe.run()
+        torch.cuda.synchronize()
+        plain_pipe.stop()
+        for name, v in first.items():
+            w = plain[name]
+            if name.endswith("heatmap"):
+                ok = torch.allclose(v, w, rtol=1e-6, atol=0.0)
+            else:
+                ok = torch.equal(v, w)
+            if not ok:
+                fail(f"{phase}: {name} differs between the kernel and the plain heatmap version")
+            if v.dtype.is_floating_point:
+                worst[name.split(".")[-1]] = max(worst.get(name.split(".")[-1], 0.0),
+                                                 float((v - w).abs().max()))
     fps = [MAIN_WINDOW_BATCHES * batch * num_cams / w for w in window_s]
     ms_per_batch = [w / MAIN_WINDOW_BATCHES * 1e3 for w in window_s]
+    config = ("DCT wire, 'dp16' grouping: 6 cams x 372x1024 q90 JPEG (16 unique sets) -> "
+              "256x704 on the card" if wire == "dct" else
+              f"YUV 4:2:0 wire, packed: 6 cams x 372x1024 q90 JPEG (16 unique sets, decoder "
+              f"{WIRE_DECODER!r} to 256x704)")
     emit({
-        "phase": "main", "card": card, "frames_per_s": float(np.median(fps)),
+        "phase": phase, "card": card, "wire": wire, "frames_per_s": float(np.median(fps)),
         "frames_per_s_windows": fps, "ms_per_batch": float(np.median(ms_per_batch)),
         "ms_per_batch_windows": ms_per_batch, "batches": n_batches,
         "draw_gaussians_launches": launches, "bytes_per_batch": stats["bytes_per_batch"],
@@ -626,9 +660,8 @@ def main_phase(dev, card: str):
         "consumer_wait_s": stats["consumer_wait_s"], "device_stage_s": stats["device_stage_s"],
         "producer_busy_s": stats["producer_busy_s"], "produced": stats["produced"],
         "input_bound_frac": stats["input_bound_frac"], "plain_recompute_max_abs_err": worst,
-        "setup_s": setup_s, "decoder": WIRE_DECODER, "decoded_by": decoded,
-        "config": f"YUV 4:2:0 wire, packed: 6 cams x 372x1024 q90 JPEG (16 unique sets, decoder "
-                  f"{WIRE_DECODER!r} to 256x704), batch 8, heatmap 10x64x176, T=32",
+        "setup_s": setup_s, **extra,
+        "config": config + ", batch 8, heatmap 10x64x176, T=32",
     })
     return main_launches
 
@@ -660,6 +693,109 @@ def main_frames_phase(dev, card: str):
           "config": "raw RGB frames (2 unique sets): 6 cams x 372x1024, batch 8 -> 256x704"})
 
 
+def kernel_counts(fn):
+    """``fn()`` once under torch.profiler: its device kernels, memsets and
+    copies, counted from the profiler's CUDA rows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {"kernels": 0, "memsets": 0, "copies": 0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        kind = ("copies" if e.key.startswith("Memcpy") else
+                "memsets" if e.key.startswith("Memset") else "kernels")
+        counts[kind] += e.count
+    return counts
+
+
+def decode_readings(run_step, reps: int = N_TIMED) -> dict:
+    """Device ms of ``run_step()`` (CUDA events, the stream held by a sleep
+    while the host enqueues, so the events see the device work only; median
+    and spread of ``reps``), its host enqueue ms, and its launches."""
+    run_step()  # constants on the card, allocator warm
+    dev_ms, host_ms = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(DECODE_SLEEP_CYCLES)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        run_step()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        e1.record()
+        torch.cuda.synchronize()
+        dev_ms.append(e0.elapsed_time(e1))
+    return {"device_ms": float(np.median(dev_ms)), "device_ms_min": float(min(dev_ms)),
+            "device_ms_max": float(max(dev_ms)), "enqueue_host_ms": float(np.median(host_ms)),
+            "launches": kernel_counts(run_step)}
+
+
+def dct_wire_phase(dev, card: str):
+    """One full-width host batch of the DCT wire, decoded on the card and on
+    the CPU: coefficients bitwise, planes within 1; the step sync-free; its
+    device time and launches per batch."""
+    from accvlab_tpu_torch.bench_pipeline import build_pipeline
+
+    pipe = build_pipeline(batch_size=8, device=dev, cache_dir=CACHE_DIR, affine_prob=0.0,
+                          photometric_prob=0.0)
+    try:
+        host = pipe._produce_host_batch()[3]
+        leaves = pipe._transfer(host)
+    finally:
+        pipe.stop()
+    packer = packer_of(pipe)
+    unpacker = pipe._device_steps[0]
+
+    def sdg_of(values):
+        sdg = pipe._host_out_blueprint.get_empty_like_self()
+        sdg.set_data(list(values))
+        return sdg
+
+    _, on_card = unpacker.stacked_fields(sdg_of(leaves))
+    _, on_cpu = unpacker.stacked_fields(sdg_of([torch.from_numpy(a) for a in host]))
+    coef_card, coef_cpu = unpacker.coefficients(on_card.__getitem__), \
+        unpacker.coefficients(on_cpu.__getitem__)
+    for cs, want in coef_cpu.items():
+        if not torch.equal(coef_card[cs].cpu(), want):
+            fail(f"dct_wire: the integer coefficients of '{cs}' differ between card and CPU")
+    planes = {}
+    for name, got, want in zip(("y", "cbcr"), unpacker.decode_fields(on_card.__getitem__),
+                               unpacker.decode_fields(on_cpu.__getitem__)):
+        d = (got.cpu().to(torch.int32) - want.to(torch.int32)).abs()
+        planes[name] = {"shape": list(want.shape), "max_abs_diff": int(d.max()),
+                        "differing_share": float((d > 0).double().mean())}
+        if planes[name]["max_abs_diff"] > 1:
+            fail(f"dct_wire: the {name} planes on the card are {planes[name]} from the CPU's")
+
+    # the whole step (stacking the cameras, then the decode) after a warm-up
+    # call makes no copy or wait between host and card
+    unpacker._process(sdg_of(leaves))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        unpacker._process(sdg_of(leaves))
+    except RuntimeError as e:
+        fail(f"dct_wire: the decode synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    readings = decode_readings(lambda: unpacker._process(sdg_of(leaves)))
+    emit({"phase": "dct_wire", "card": card, "coefficients_bitwise_vs_cpu": True,
+          "images": len(coef_cpu["y"]), "planes_vs_cpu": planes, "sync_free_decode": True,
+          "decode_device_ms_per_batch": readings["device_ms"],
+          "decode_device_ms_min_max": [readings["device_ms_min"], readings["device_ms_max"]],
+          "decode_enqueue_host_ms": readings["enqueue_host_ms"],
+          "decode_launches_per_batch": readings["launches"], "timed": N_TIMED,
+          "bytes_per_batch": int(sum(a.nbytes for a in host)),
+          "wire_fields_per_batch": len(host), "grouping": [list(g) for g in packer.groups],
+          "packer_last_batch": packer.last_batch_stats,
+          "packer_seconds": packer.last_batch_seconds})
+
+
 def wire_planes(pipe, leaves):
     """The Y and CbCr planes of one batch's leaves: decoded by
     WirePlaneUnpacker when the pipeline packs them, else as they are."""
@@ -679,7 +815,7 @@ def wire_phase(dev, card: str):
     from accvlab_tpu_torch.pipeline.processing_steps import WirePlaneUnpacker, YCbCrToRGBConverter
 
     kw = dict(batch_size=8, device=dev, cache_dir=CACHE_DIR, affine_prob=0.0,
-              photometric_prob=0.0, decoder=WIRE_DECODER)
+              photometric_prob=0.0, wire="yuv", decoder=WIRE_DECODER)
     packed, raw = build_pipeline(**kw), build_pipeline(wire_pack=False, **kw)
     try:
         host_packed = packed._produce_host_batch()[3]
@@ -734,12 +870,15 @@ def wire_phase(dev, card: str):
           "sync_free_unpack_convert": True})
 
 
-def echo_phase(dev, card: str):
+def echo_wire(dev, wire: str) -> dict:
+    """echo_factor=2 on ``wire``: a timed window, the replays differ, a
+    mid-echo resume continues bitwise."""
     from accvlab_tpu_torch.bench_pipeline import build_pipeline
 
     batch, num_cams = 8, 6
+    kw = {"decoder": WIRE_DECODER} if wire == "yuv" else {}
     build = lambda: build_pipeline(batch_size=batch, device=dev, cache_dir=CACHE_DIR,  # noqa: E731
-                                   echo_factor=2, decoder=WIRE_DECODER)
+                                   echo_factor=2, wire=wire, **kw)
     pipe = build()
     try:
         first = [{k: v.clone() for k, v in pipe.run().items()} for _ in range(2)]
@@ -752,11 +891,13 @@ def echo_phase(dev, card: str):
     finally:
         pipe.stop()
     if not same_source_differs:
-        fail("echo: the two replays of a host batch are equal")
+        fail(f"echo ({wire}): the two replays of a host batch are equal")
     if launches != ECHO_BATCHES:
-        fail(f"echo: draw_gaussians launched {launches} times for {ECHO_BATCHES} batches")
+        fail(f"echo ({wire}): draw_gaussians launched {launches} times for {ECHO_BATCHES} "
+             "batches")
     if stats["consumed"] != 2 * stats["transfers"]:
-        fail(f"echo: {stats['consumed']} batches delivered from {stats['transfers']} transfers")
+        fail(f"echo ({wire}): {stats['consumed']} batches delivered from {stats['transfers']} "
+             "transfers")
     check_outputs(out, num_cams, batch)
 
     # mid-echo resume: state after 3 deliveries (the first replay of host
@@ -775,7 +916,7 @@ def echo_phase(dev, card: str):
     finally:
         pipe.stop()
     if state.get("echo") != {"factor": 2, "next": 1}:
-        fail(f"echo: unexpected mid-echo state {state}")
+        fail(f"echo ({wire}): unexpected mid-echo state {state}")
     fresh = build()
     try:
         fresh.set_state(state)
@@ -783,16 +924,21 @@ def echo_phase(dev, card: str):
             got = fresh.run()
             for k, v in got.items():
                 if not torch.equal(v, stream[i][k]):
-                    fail(f"echo: after the resume, batch {i} field {k} differs")
+                    fail(f"echo ({wire}): after the resume, batch {i} field {k} differs")
     finally:
         fresh.stop()
-    emit({"phase": "echo", "card": card, "echo_factor": 2,
-          "delivered_frames_per_s": ECHO_BATCHES * batch * num_cams / window_s[0],
-          "ms_per_delivered_batch": window_s[0] / ECHO_BATCHES * 1e3,
-          "consumed": stats["consumed"], "transfers": stats["transfers"],
-          "bytes_per_transfer": stats["bytes_per_batch"], "replays_differ": True,
-          "state": state, "resumed_batches_bitwise": RESUME_BATCHES,
-          "draw_gaussians_launches": launches, "decoded_by": stats["decoded_by"]})
+    return {"delivered_frames_per_s": ECHO_BATCHES * batch * num_cams / window_s[0],
+            "ms_per_delivered_batch": window_s[0] / ECHO_BATCHES * 1e3,
+            "consumed": stats["consumed"], "transfers": stats["transfers"],
+            "bytes_per_transfer": stats["bytes_per_batch"], "replays_differ": True,
+            "state": state, "resumed_batches_bitwise": RESUME_BATCHES,
+            "draw_gaussians_launches": launches,
+            **({"decoded_by": stats["decoded_by"]} if wire == "yuv" else {})}
+
+
+def echo_phase(dev, card: str):
+    yuv = echo_wire(dev, "yuv")
+    emit({"phase": "echo", "card": card, "echo_factor": 2, **yuv, "dct": echo_wire(dev, "dct")})
 
 
 def affine_sizes_phase(dev, card: str):
@@ -1039,7 +1185,7 @@ def input_idle_phase(dev, card: str):
 
     batches = 1 + 2 * IDLE_ITERS  # the first, the warm-up window, the timed window
     readings = {}
-    for wire in ("yuv", "frames"):
+    for wire in ("yuv", "frames", "dct"):
         kw = {"decoder": WIRE_DECODER} if wire == "yuv" else {}
         pipe = build_pipeline(batch_size=8, device=dev, wire=wire, cache_dir=CACHE_DIR, **kw)
         try:
@@ -1057,7 +1203,7 @@ def input_idle_phase(dev, card: str):
                           **({"decoder": WIRE_DECODER, "decoded_by": stats["decoded_by"]}
                              if wire == "yuv" else {})}
     emit({"phase": "input_idle", "card": card, "n_iters": IDLE_ITERS, **readings["yuv"],
-          "frames": readings["frames"]})
+          "frames": readings["frames"], "dct": readings["dct"]})
 
 
 # --------------------------------------------------------------------- #
@@ -1561,7 +1707,7 @@ def main() -> int:
     from accvlab_tpu_torch import _native_build
     from accvlab_tpu_torch.heatmap import _kernel
     from accvlab_tpu_torch.hostcopy import native as hostcopy_native
-    from accvlab_tpu_torch.pipeline import native_jpeg, wire_native
+    from accvlab_tpu_torch.pipeline import dct_native, native_jpeg, wire_native
     from accvlab_tpu_torch.ragged import _auction_kernel
 
     smi = nvidia_smi_line()
@@ -1573,7 +1719,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     builds = [_kernel.library_path, _auction_kernel.library_path, hostcopy_native.library_path,
-              wire_native.library_path, native_jpeg.library_path]
+              wire_native.library_path, native_jpeg.library_path, dct_native.library_path]
     with ThreadPoolExecutor(max_workers=len(builds)) as ex:  # one compiler per source, together
         libs = list(ex.map(lambda f: f(), builds))
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": libs,
@@ -1583,7 +1729,9 @@ def main() -> int:
     replaces, results, entry_launches, n_golden = kernel_phase(dev, flush)
     emit({"phase": "goldens", "bitwise_groups": n_golden})
     main_launches = main_phase(dev, card)
+    main_phase(dev, card, wire="yuv")
     main_frames_phase(dev, card)
+    dct_wire_phase(dev, card)
     wire_phase(dev, card)
     echo_phase(dev, card)
     affine_sizes_phase(dev, card)

@@ -1,21 +1,25 @@
 """Where the PyTorch port's headline pipeline spends its time, on one CUDA card.
 
 Run from the repository root:
-  python3 scripts/torch_main_path_breakdown.py [--wire yuv|frames] [--batches N]
-      [--decoder native|pil]
+  python3 scripts/torch_main_path_breakdown.py [--wire dct|yuv|frames] [--batches N]
+      [--decoder native|pil] [--grouping dp16] [--packer-threads N]
 
 Builds bench.py's multi-camera pipeline on the port
 (``accvlab_tpu_torch.bench_pipeline``: 6 x 372x1024, batch 8, out 256x704,
-heatmap 10x64x176) on the YUV 4:2:0 wire (q90 JPEGs decoded on the host by
-``--decoder``, libjpeg at its DCT scale by default, the plane codec, unpack +
-colour conversion on the card; the default)
-or on raw RGB frames, and prints JSON lines:
+heatmap 10x64x176) on the DCT wire (the default: q90 JPEGs entropy-decoded
+on the host, their quantized coefficients packed in ``--grouping``, unpack +
+IDCT + resize + colour conversion on the card), on the YUV 4:2:0 wire (the
+JPEGs decoded on the host by ``--decoder``, libjpeg at its DCT scale by
+default, the plane codec, unpack + colour conversion on the card) or on raw
+RGB frames, and prints JSON lines:
 
 * ``serial``: each phase of one batch run alone, one after the other, with a
   synchronise after each, on the host clock (median over ``--batches``):
   host stage (input callable, host steps and stacking, on the worker pool),
   with the image decoder's time summed over its calls and the packer's
-  time; transfer (pack into pinned memory + host-to-device copy); every
+  time (on the DCT wire also the packer's entropy decode, analyze and pack,
+  each summed over the batch's images: ``dct_packer_ms_summed_over_images``);
+  transfer (pack into pinned memory + host-to-device copy); every
   device step on the host clock (``device_steps_ms``) and its device time
   (``device_steps_device_ms``: CUDA events with the stream held by a sleep
   while the host enqueues the step, so the events see the device work
@@ -30,10 +34,11 @@ or on raw RGB frames, and prints JSON lines:
   pipelined window.
 
 ``--num-threads`` sets the host stage's worker threads (default: the core
-count). ``--switch-interval`` sets how long a thread that wants the
-interpreter lock waits before it asks the holder to drop it (Python's
-default 5 ms). Both probe why the consumer thread's enqueue slows down
-while the host stage's workers decode.
+count). ``--packer-threads`` sets the DCT packer's own pool (default
+``min(4, cores)``). ``--switch-interval`` sets how long a thread that wants
+the interpreter lock waits before it asks the holder to drop it (Python's
+default 5 ms). They probe why the consumer thread's enqueue slows down
+while the host stage decodes and packs.
 
 Needs a card; prints the card's name and power limit beside the numbers.
 """
@@ -53,6 +58,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from accvlab_tpu_torch.bench_pipeline import build_pipeline  # noqa: E402
+from accvlab_tpu_torch.pipeline.processing_steps import DCTWirePacker  # noqa: E402
 
 
 # about 50 ms of the card's clock: longer than the host takes to enqueue any step
@@ -104,8 +110,21 @@ def per_call(name: str, into: dict):
     return record
 
 
-def serial_phase(batches: int, wire: str, num_threads, decoder: str) -> dict:
-    pipe = build_pipeline(batch_size=8, wire=wire, num_threads=num_threads, decoder=decoder)
+def build(wire: str, num_threads, decoder: str, grouping: str, packer_threads):
+    """bench.py's pipeline at full width on the card, with the DCT packer's
+    pool set to ``packer_threads`` when given."""
+    pipe = build_pipeline(batch_size=8, wire=wire, num_threads=num_threads, decoder=decoder,
+                          grouping=grouping)
+    if packer_threads is not None:
+        for step in pipe._host_steps:
+            if isinstance(step, DCTWirePacker):
+                step._num_threads = packer_threads
+    return pipe
+
+
+def serial_phase(batches: int, wire: str, num_threads, decoder: str, grouping: str,
+                 packer_threads) -> dict:
+    pipe = build(wire, num_threads, decoder, grouping, packer_threads)
     clock = {"mode": "host"}
     step_ms: dict = {}
     step_dev_ms: dict = {}
@@ -113,7 +132,8 @@ def serial_phase(batches: int, wire: str, num_threads, decoder: str) -> dict:
     for step in pipe._host_steps:
         wrap(step, "_process_batch" if step.is_batch_level else "_process",
              per_call(type(step).__name__, host_calls))
-    host_ms, transfer_ms, device_ms, host_steps = [], [], [], {}
+    host_ms, transfer_ms, device_ms, host_steps, dct_parts = [], [], [], {}, []
+    dct_packers = [s for s in pipe._host_steps if isinstance(s, DCTWirePacker)]
     for i in range(batches + 2):  # the first two warm up allocators and kernels
         host_calls.clear()
         t0 = time.perf_counter()
@@ -138,6 +158,7 @@ def serial_phase(batches: int, wire: str, num_threads, decoder: str) -> dict:
             device_ms.append((t3 - t2) * 1e3)
             for k, v in host_calls.items():
                 host_steps.setdefault(k, []).append((sum(v), len(v)))
+            dct_parts += [p.last_batch_seconds for p in dct_packers]
     pipe.stop()
     return {
         "wire": wire,
@@ -150,13 +171,19 @@ def serial_phase(batches: int, wire: str, num_threads, decoder: str) -> dict:
         "device_steps_ms": {k: float(np.median(v)) for k, v in step_ms.items()},
         "device_steps_device_ms": {k: float(np.median(v)) for k, v in step_dev_ms.items()},
         "bytes_per_batch": int(sum(a.nbytes for a in host_batch)),
+        **({"dct_packer_ms_summed_over_images": {
+            k: float(np.median([p[k] for p in dct_parts])) * 1e3
+            for k in ("entropy_decode", "analyze", "pack")},
+            "dct_images_per_batch": dct_parts[0]["images"],
+            "dct_grouping": [list(g) for g in dct_packers[0].groups]} if dct_parts else {}),
     }
 
 
-def pipelined_phase(batches: int, wire: str, num_threads, decoder: str):
+def pipelined_phase(batches: int, wire: str, num_threads, decoder: str, grouping: str,
+                    packer_threads):
     from torch.profiler import ProfilerActivity, profile
 
-    pipe = build_pipeline(batch_size=8, wire=wire, num_threads=num_threads, decoder=decoder)
+    pipe = build(wire, num_threads, decoder, grouping, packer_threads)
     for _ in range(3):
         pipe.run()
     torch.cuda.synchronize()
@@ -215,11 +242,15 @@ def pipelined_phase(batches: int, wire: str, num_threads, decoder: str):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=10)
-    ap.add_argument("--wire", choices=("yuv", "frames"), default="yuv")
+    ap.add_argument("--wire", choices=("dct", "yuv", "frames"), default="dct")
+    ap.add_argument("--grouping", default="dp16",
+                    help="the DCT wire's band grouping (build_pipeline(grouping=))")
     ap.add_argument("--decoder", choices=("native", "pil"), default="native",
                     help="the YUV wire's host decoder (ImageDecoder(decoder=))")
     ap.add_argument("--num-threads", type=int, default=None,
                     help="host-stage worker threads (build_pipeline's default: the core count)")
+    ap.add_argument("--packer-threads", type=int, default=None,
+                    help="the DCT packer's own pool (DCTWirePacker's default: min(4, cores))")
     ap.add_argument("--switch-interval", type=float, default=None,
                     help="sys.setswitchinterval in seconds for the run (Python's default: 0.005)")
     args = ap.parse_args()
@@ -232,11 +263,14 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     card = {"card": smi, "cpu_count": os.cpu_count(), "switch_interval_s": sys.getswitchinterval(),
             "num_threads": args.num_threads,
-            "decoder": args.decoder if args.wire == "yuv" else None}
+            "decoder": args.decoder if args.wire == "yuv" else None,
+            "grouping": args.grouping if args.wire == "dct" else None,
+            "packer_threads": args.packer_threads}
     emit({"phase": "serial", **card, **serial_phase(args.batches, args.wire, args.num_threads,
-                                                   args.decoder)})
+                                                   args.decoder, args.grouping,
+                                                   args.packer_threads)})
     pipelined, top = pipelined_phase(args.batches, args.wire, args.num_threads,
-                                     args.decoder)
+                                     args.decoder, args.grouping, args.packer_threads)
     emit({"phase": "pipelined", **card, **pipelined})
     emit({"phase": "top_device_ops", **card, "ops": top})
     return 0

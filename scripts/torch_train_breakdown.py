@@ -152,7 +152,7 @@ def fed_loop_phase(steps: int, model: str) -> dict:
 
     if model == "petr":
         return petr_fed_loop_phase(steps)
-    pipe = build_pipeline(batch_size=8)
+    pipe = build_pipeline(batch_size=8, wire="yuv")
     model = init_params(CenterNetDetector(10, width=64), torch.Generator().manual_seed(0)).cuda()
     train = dense_train_step(model, adam(model.parameters()), len(CAMS))
     for _ in range(5):

@@ -30,6 +30,8 @@ from accvlab_tpu_torch.pipeline.inputs import (
     ShuffledShardedInputCallable,
 )
 from accvlab_tpu_torch.pipeline.processing_steps import (
+    DCTWirePacker,
+    DCTWireUnpacker,
     ImageDecoder,
     PhotoMetricDistorter,
     WirePlanePacker,
@@ -449,16 +451,12 @@ def test_state_dicts_equal_jax_after_the_same_consumption(echo):
 # ------------------------- the packed wire ------------------------------ #
 
 
-def test_packed_wire_with_echo_mid_resume_bitwise():
-    """Wire compression x echoing x resume: each replay decodes the same
-    transferred packed fields again with its own randomness, and a mid-echo
-    resume continues bit for bit."""
+def _assert_wire_echo_resume_bitwise(wire_steps):
+    """Each replay decodes the same transferred wire fields again with its
+    own randomness, and a mid-echo resume continues bit for bit."""
     def build():
         inp = ShuffledShardedInputCallable(Provider(), batch_size=2, shuffle=True)
-        steps = [
-            ImageDecoder("image", wire_format="yuv420"),
-            WirePlanePacker(["image", "image_cbcr"]),
-            WirePlaneUnpacker(["image", "image_cbcr"]),
+        steps = wire_steps() + [
             YCbCrToRGBConverter("image"),
             PhotoMetricDistorter("image", min_max_brightness=(-10.0, 10.0),
                                  min_max_hue=(-5.0, 5.0), min_max_contrast=(0.9, 1.1),
@@ -487,3 +485,22 @@ def test_packed_wire_with_echo_mid_resume_bitwise():
             _assert_same(_arrays(fresh.run()), stream[i], f"batch {i}")
     finally:
         fresh.stop()
+
+
+def test_packed_wire_with_echo_mid_resume_bitwise():
+    """Wire compression x echoing x resume."""
+    _assert_wire_echo_resume_bitwise(lambda: [
+        ImageDecoder("image", wire_format="yuv420"),
+        WirePlanePacker(["image", "image_cbcr"]),
+        WirePlaneUnpacker(["image", "image_cbcr"]),
+    ])
+
+
+def test_dct_wire_with_echo_mid_resume_bitwise():
+    """The DCT wire x echoing x resume (the counterpart of
+    tests/test_dct_wire.py::test_dct_wire_with_echo_mid_resume_bitwise): the
+    replays decode the same transferred coefficients."""
+    _assert_wire_echo_resume_bitwise(lambda: [
+        DCTWirePacker("image", (16, 24), (16, 24)),
+        DCTWireUnpacker("image", (16, 24), (16, 24)),
+    ])

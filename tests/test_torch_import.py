@@ -35,6 +35,7 @@ COPIED_CSRC = [
     ("pipeline/csrc/wirepack.cpp", "accvlab_tpu/pipeline/csrc/wirepack.cpp"),
     ("pipeline/csrc/simd_bitplane.h", "accvlab_tpu/pipeline/csrc/simd_bitplane.h"),
     ("pipeline/csrc/jpegdec.cpp", "accvlab_tpu/pipeline/csrc/jpegdec.cpp"),
+    ("pipeline/csrc/dctpack.cpp", "accvlab_tpu/pipeline/csrc/dctpack.cpp"),
 ]
 
 
@@ -106,6 +107,7 @@ def _entry_points():
     from accvlab_tpu_torch.hostcopy import start_copy
     from accvlab_tpu_torch.models import make_petr_example_batch
     from accvlab_tpu_torch.batched_loss_computation import make_data, make_head
+    from accvlab_tpu_torch.pipeline.processing_steps import compress_jpeg_dct, decompress_jpeg_dct
     from accvlab_tpu_torch.ragged import RaggedBatch, auction_matching, batched_auction_matching
 
     z = np.zeros
@@ -129,7 +131,15 @@ def _entry_points():
         "build_stream_pipeline": lambda **kw: _tiny_pipeline(stream=True, **kw),
         "make_data": lambda **kw: make_data(batch_size=1, max_gt=4, num_pred=6, **kw),
         "make_head": lambda **kw: make_head(dim=4, **kw),
+        "decompress_jpeg_dct": lambda **kw: decompress_jpeg_dct(
+            compress_jpeg_dct(_tiny_jpeg(), (8, 16)), (8, 16), **kw),
     }
+
+
+def _tiny_jpeg():
+    from accvlab_tpu_torch.pipeline.inputs.multicam_jpeg import encode_bench_jpegs
+
+    return encode_bench_jpegs(1, (16, 32))[0]
 
 
 def _tiny_pipeline(stream=False, **kw):
@@ -147,7 +157,8 @@ def _tiny_pipeline(stream=False, **kw):
 @pytest.mark.parametrize("name", ["draw_heatmap", "draw_heatmap_batched", "draw_gaussians",
                                   "start_copy", "get_pipeline", "auction_matching",
                                   "batched_auction_matching", "make_petr_example_batch",
-                                  "build_stream_pipeline", "make_data", "make_head"])
+                                  "build_stream_pipeline", "make_data", "make_head",
+                                  "decompress_jpeg_dct"])
 def test_entry_points_default_to_cuda(name):
     fn = _entry_points()[name]
     if torch.cuda.is_available():
@@ -155,3 +166,42 @@ def test_entry_points_default_to_cuda(name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fn()
     fn(device="cpu")  # explicit CPU runs the plain versions
+
+
+def test_failed_dctpack_build_raises(monkeypatch):
+    """A DCT band encoder that does not build raises, naming the compiler's
+    error; the packer never reaches the numpy backend (the JAX module warns
+    and falls back to it)."""
+    from accvlab_tpu_torch.pipeline import DType, SampleDataGroup, dct_native
+    from accvlab_tpu_torch.pipeline.processing_steps import DCTWirePacker
+
+    def broken(*a, **kw):
+        raise RuntimeError("libaccvlab_dctpack build failed (g++ ...): dctpack.cpp:1: error")
+
+    monkeypatch.setattr(dct_native, "_LIB", None)
+    monkeypatch.setattr(dct_native, "build_host_lib", broken)
+    with pytest.raises(RuntimeError, match="did not build: .*dctpack.cpp:1: error"):
+        dct_native.get_lib()
+    packer = DCTWirePacker("image", (16, 32), (8, 16), num_threads=1)
+    s = SampleDataGroup()
+    s.add_data_field("image", DType.UINT8)
+    s["image"] = _tiny_jpeg()
+    with pytest.raises(RuntimeError, match="did not build"):
+        packer._process_batch([s])
+
+
+def test_dct_wire_without_libjpeg_raises(monkeypatch):
+    """Without the native libjpeg decoder ``wire="dct"`` raises, where
+    bench.py falls back quietly to the YUV wire (bench.py:169-175)."""
+    from accvlab_tpu_torch.bench_pipeline import build_pipeline
+    from accvlab_tpu_torch.pipeline import native_jpeg
+    from accvlab_tpu_torch.pipeline.processing_steps import DCTWirePacker
+
+    monkeypatch.setattr(native_jpeg, "available", lambda: False)
+    monkeypatch.setattr(native_jpeg, "build_error", lambda: "no libjpeg (test)")
+    for wire in ("dct", None):  # named, and as the default
+        kw = {} if wire is None else {"wire": wire}
+        with pytest.raises(RuntimeError, match="libjpeg.*no libjpeg \\(test\\).*wire='yuv'"):
+            build_pipeline(device="cpu", **kw)
+    with pytest.raises(RuntimeError, match="native libjpeg"):
+        DCTWirePacker("image", (16, 32), (8, 16))
