@@ -140,7 +140,7 @@ def build_pipeline(batch_size: int = 8, device=None, num_threads: Optional[int] 
                    wire_pack: bool = True, echo_factor: int = 1,
                    cache_dir: Optional[str] = None, sampler: Optional[SamplerBase] = None,
                    sampler_iterations: int = 1024, decoder: str = "pil",
-                   grouping="dp16"):
+                   grouping="dp16", worker_mode: str = "thread"):
     """bench.py's pipeline on the port (``device`` defaults to the card).
 
     ``wire``: ``"dct"`` (the default), ``"yuv"`` or ``"frames"`` (module
@@ -154,7 +154,9 @@ def build_pipeline(batch_size: int = 8, device=None, num_threads: Optional[int] 
     ``sampler`` replaces bench.py's shuffled reads with a
     ``SamplerInputCallable`` over ``sampler`` (for example a
     ``SequenceSampler``, drive order), built for ``sampler_iterations``
-    batches plus the prefetch ring's 2.
+    batches plus the prefetch ring's 2. ``worker_mode="process"`` runs the
+    per-sample host phase (the input and, on the YUV wire, the decoder) in
+    ``num_threads`` spawned workers; the wire packers stay in the producer.
     """
     if wire not in NUM_UNIQUE:
         raise ValueError(f"wire must be one of {tuple(NUM_UNIQUE)}, got {wire!r}")
@@ -200,7 +202,8 @@ def build_pipeline(batch_size: int = 8, device=None, num_threads: Optional[int] 
     definition = PipelineDefinition(inp, steps, check_data_format=False,
                                     copy_external_source_passthrough_outputs=False)
     return definition.get_pipeline(batch_size=batch_size, num_threads=num_threads,
-                                   device=device, seed=seed, echo_factor=echo_factor)
+                                   device=device, seed=seed, echo_factor=echo_factor,
+                                   worker_mode=worker_mode)
 
 
 def model_inputs(out: Dict[str, torch.Tensor], num_cams: int):

@@ -18,8 +18,13 @@ from .random_context import (
     RandomContext,
     ScriptedRandomContext,
 )
+from .structured_output_iterator import (
+    DALIStructuredOutputIterator,
+    StructuredOutputIterator,
+)
 
 __all__ = [
+    "DALIStructuredOutputIterator",
     "DType",
     "DeviceRandomContext",
     "HostRandomContext",
@@ -27,6 +32,7 @@ __all__ = [
     "RandomContext",
     "SampleDataGroup",
     "ScriptedRandomContext",
+    "StructuredOutputIterator",
     "TorchPipeline",
     "dtype_for_numpy",
     "numpy_dtype_for",

@@ -1,5 +1,5 @@
-"""Point operators used by the heatmap step, batched (port of the matching
-functions of ``accvlab_tpu/pipeline/operators/point_ops.py``).
+"""Point operators, batched (port of ``accvlab_tpu/pipeline/operators/point_ops.py``;
+``pad_to_common_size`` is the host's numpy form).
 
 Transforms are ``(..., 2, 3)`` (one per sample) and point sets ``(..., N, 2)``.
 The 2x3 products are written out as multiply-adds in the order of a dot
@@ -8,6 +8,7 @@ product (no matrix-multiply library call, so no TF32 and no reordering).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -88,3 +89,15 @@ def get_is_active(
             active_size = ones
     active_area = fraction_areas >= min_fraction_area_thresh
     return active_classes & active_size & active_area
+
+
+def pad_to_common_size(*inputs, fill_value: float):
+    """Pad all inputs to their element-wise maximum shape (host, numpy).
+    Parity: ``point_ops.py:140``."""
+    inputs = [np.asarray(inp) for inp in inputs]
+    max_shape = np.stack([np.array(inp.shape) for inp in inputs], axis=0).max(axis=0)
+    return tuple(
+        np.pad(inp, [(0, int(max_shape[d] - inp.shape[d])) for d in range(inp.ndim)],
+               constant_values=fill_value)
+        for inp in inputs
+    )

@@ -26,8 +26,12 @@ its own device randomness, keyed ``(seed, batch_idx, echo)``) and
 checkpoints its consumed position (``get_state``/``set_state``, the JAX
 package's state dict, mid-echo positions included).
 
-Not ported yet (ROADMAP.md): mesh sharding, ``device_program_text``,
-``export_device_program``, ``start_trace``, process workers.
+Host work runs on threads or, with ``worker_mode="process"``, in spawned
+worker processes (:mod:`.worker_pool`). ``start_trace``/``stop_trace``
+record the executor's phase timeline (:mod:`..tools.chrome_trace`).
+
+Not ported yet (ROADMAP.md): mesh sharding, ``device_program_text`` and
+``export_device_program``.
 """
 
 from __future__ import annotations
@@ -140,10 +144,17 @@ class PipelineDefinition:
         seed: int = 0,
         prefetch_queue_depth: Optional[int] = None,
         echo_factor: int = 1,
+        worker_mode: str = "thread",
     ) -> "TorchPipeline":
         """Build the executable pipeline. ``device`` defaults to the CUDA
         device (raises without a card); ``device="cpu"`` runs every step's
         plain PyTorch version on the CPU.
+
+        ``worker_mode``: ``"thread"`` (the default; host steps that release
+        the interpreter lock) or ``"process"`` (``num_threads`` spawned
+        workers run the input callable and the per-sample host steps, which
+        must pickle; batch-level host steps stay in the producer thread).
+        Both give the same batches, bit for bit.
 
         ``echo_factor``: data echoing (Choi et al. 2019). Each host batch is
         delivered ``echo_factor`` times, transferred to the device once, with
@@ -162,6 +173,7 @@ class PipelineDefinition:
             parallel=self._use_parallel,
             check_data_format=self._check_data_format,
             echo_factor=echo_factor,
+            worker_mode=worker_mode,
         )
 
 
@@ -184,11 +196,16 @@ class TorchPipeline:
         parallel: bool,
         check_data_format: bool,
         echo_factor: int = 1,
+        worker_mode: str = "thread",
     ):
+        if worker_mode not in ("thread", "process"):
+            raise ValueError(f"worker_mode must be 'thread' or 'process', got {worker_mode!r}")
         self._device = resolve_device(device)
         if self._device.type == "cuda" and self._device.index is None:
             self._device = torch.device("cuda", torch.cuda.current_device())
         self._num_threads = num_threads
+        self._worker_mode = worker_mode
+        self._workers = None  # ProcessSampleWorkers, made at the first batch
         self._definition = definition
         self._batch_size = batch_size
         self._seed = seed
@@ -265,6 +282,11 @@ class TorchPipeline:
         self._stat_device_stage_s = 0.0
         self._stat_transfer_bytes = 0
         self._stat_transfers = 0
+        # bytes the latest delivery moved (0 for an echo replay)
+        self._last_dispatch_bytes = 0
+        # phase-timeline recorder (start_trace); when None the hot paths pay
+        # one attribute read per phase
+        self._trace = None
 
     @property
     def device(self) -> torch.device:
@@ -307,7 +329,23 @@ class TorchPipeline:
         """Run input + host steps for one batch. Returns ``(batch_idx,
         iteration after it, the input's state after it, stacked numpy
         fields)`` or raises StopIteration."""
-        if isinstance(self._definition._input, CallableBase):
+        is_callable = isinstance(self._definition._input, CallableBase)
+        if is_callable and self._worker_mode == "process":
+            from .worker_pool import ProcessSampleWorkers
+
+            if self._workers is None:
+                self._workers = ProcessSampleWorkers(
+                    self._num_threads, self._definition._input, self._host_steps,
+                    self._input_blueprint, self._check, self._seed)
+            flats = self._workers.produce_batch(
+                self._batch_size, self._iteration, self._epoch)  # raises StopIteration
+            samples = []
+            for flat in flats:
+                # the workers ran the per-sample phase only
+                sdg = self._per_sample_out_blueprint.get_empty_like_self()
+                sdg.set_data(flat)
+                samples.append(sdg)
+        elif is_callable:
             if self._pool is not None:
                 def load_and_process(i):
                     flat = self._load_sample(i)
@@ -400,6 +438,7 @@ class TorchPipeline:
         from ..hostcopy import start_copy
 
         self._stat_transfer_bytes = sum(a.nbytes for a in host_batch)
+        self._last_dispatch_bytes = self._stat_transfer_bytes
         self._stat_transfers += 1
         handle = start_copy(
             list(host_batch), device=self._device, use_background_thread=False,
@@ -455,6 +494,10 @@ class TorchPipeline:
             self._stat_producer_busy_s += t1 - t0
             self._stat_producer_blocked_s += t2 - t1
             self._stat_produced += 1
+            tr = self._trace  # one read: stop_trace may race from another thread
+            if tr is not None:
+                tr.complete("host_build", "producer", t0, t1 - t0, batch=item[0])
+                tr.complete("queue_put", "producer", t1, t2 - t1, batch=item[0])
 
     def _ensure_producer(self):
         # spawn only when no producer exists for this run (reset()/set_state
@@ -495,11 +538,19 @@ class TorchPipeline:
                         )
             if item is self._END:
                 self._exhausted = True
+                tr = self._trace
+                if tr is not None:
+                    tr.instant("epoch_end", "consumer", epoch=self._epoch)
                 raise StopIteration
             if isinstance(item, Exception):
                 self._exhausted = True
                 raise item
-            self._stat_consumer_wait_s += time.monotonic() - t_wait0
+            t_wait1 = time.monotonic()
+            self._stat_consumer_wait_s += t_wait1 - t_wait0
+            tr = self._trace
+            if tr is not None:
+                tr.complete("consumer_wait", "consumer", t_wait0, t_wait1 - t_wait0,
+                            batch=item[0])
             # this host batch starts at echo 0, or mid-echo after a resume
             self._echo_item = (item, self._echo_start)
             self._echo_start = 0
@@ -508,13 +559,20 @@ class TorchPipeline:
         try:
             if isinstance(batch[0], np.ndarray):  # the first delivery transfers
                 batch = self._transfer(batch)
+            else:
+                self._last_dispatch_bytes = 0
             out = self.run_device_stage(batch, batch_idx, echo_i)
         except Exception:
             self._exhausted = True
             self._echo_item = None
             raise
-        self._stat_device_stage_s += time.monotonic() - t_dev0
+        t_dev1 = time.monotonic()
+        self._stat_device_stage_s += t_dev1 - t_dev0
         self._stat_consumed += 1
+        tr = self._trace
+        if tr is not None:
+            tr.complete("device_dispatch", "consumer", t_dev0, t_dev1 - t_dev0,
+                        batch=batch_idx, echo=echo_i, bytes=self._last_dispatch_bytes)
         # batch delivered: advance the consumed position (the resume point)
         if echo_i + 1 < self._echo_factor:
             # keep the transferred batch for its next replay
@@ -597,6 +655,9 @@ class TorchPipeline:
         # when _iteration is 0; read it before _halt_producer clears it
         mid_echo = self._consumed_echo_next > 0 or self._echo_start > 0
         self._halt_producer()
+        tr = self._trace
+        if tr is not None:
+            tr.instant("reset", "consumer", epoch=self._epoch)
         if self._exhausted or self._iteration > 0 or mid_echo:
             steps = getattr(self._definition._input, "length", None)  # host batches per epoch
             if steps is not None:
@@ -709,7 +770,8 @@ class TorchPipeline:
         device steps; device work is asynchronous),
         ``queue_depth``/``queue_size``, ``bytes_per_batch`` (of the last
         transfer) and ``input_bound_frac``; with an ``ImageDecoder`` among
-        the host steps, ``decoded_by``: the images each decoder took."""
+        the host steps (thread workers only), ``decoded_by``: the images
+        each decoder took."""
         wait = self._stat_consumer_wait_s
         dev = self._stat_device_stage_s
         denom = wait + dev
@@ -730,15 +792,50 @@ class TorchPipeline:
 
     def _decoder_counts(self) -> dict:
         counts = [s.decoded_by for s in self._host_steps if hasattr(s, "decoded_by")]
-        if not counts:
-            return {}
+        if not counts or self._worker_mode == "process":
+            return {}  # process workers decode with their own copies of the steps
         return {"decoded_by": {k: sum(c[k] for c in counts) for k in counts[0]}}
 
+    def start_trace(self, max_events: int = 100_000):
+        """Start recording the phase timeline (producer ``host_build`` and
+        ``queue_put``, consumer ``consumer_wait`` and ``device_dispatch``,
+        the instants ``epoch_end`` and ``reset``) into a
+        :class:`~accvlab_tpu_torch.tools.chrome_trace.ChromeTraceRecorder`,
+        which is returned (and handed back by :meth:`stop_trace`). One trace
+        is active at a time. ``device_dispatch`` spans the transfer and the
+        device steps' enqueue on the host; device time belongs to
+        ``torch.profiler``."""
+        if self._trace is not None:
+            raise RuntimeError("a pipeline trace is already active (stop_trace() first)")
+        from ..tools.chrome_trace import ChromeTraceRecorder
+
+        trace = ChromeTraceRecorder(max_events=max_events)
+        self._trace = trace
+        return trace
+
+    def stop_trace(self, path: Optional[str] = None):
+        """Stop recording; optionally save to ``path`` (Chrome trace JSON).
+        Returns the recorder. A producer span already in flight may still
+        append to it after this call, after the ``path`` snapshot was
+        written: for the complete picture call ``trace.save(path)`` once the
+        pipeline is quiescent (after ``stop()`` or an epoch end). A later
+        :meth:`start_trace` gets a fresh recorder."""
+        trace = self._trace
+        if trace is None:
+            raise RuntimeError("no active pipeline trace (start_trace() first)")
+        self._trace = None
+        if path is not None:
+            trace.save(path)
+        return trace
+
     def stop(self):
-        """Shut down the producer thread and worker pool."""
+        """Shut down the producer thread and the worker pool."""
         self._halt_producer()
         if self._pool is not None:
             self._pool.shutdown(wait=False)
+        if self._workers is not None:
+            self._workers.shutdown()
+            self._workers = None
 
     @property
     def output_blueprint(self) -> SampleDataGroup:

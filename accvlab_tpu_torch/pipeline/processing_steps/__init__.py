@@ -1,9 +1,16 @@
-"""Processing steps (port of ``accvlab_tpu.pipeline.processing_steps``: the
-steps of the headline pipeline, its DCT wire and its YUV 4:2:0 wire; the
-other steps wait, see ROADMAP.md)."""
+"""Processing steps (port of ``accvlab_tpu.pipeline.processing_steps``; the
+steps still to port are listed in ROADMAP.md)."""
 
 from .pipeline_step_base import BatchLevelStepBase, PipelineStepBase
 from .affine_transformer import AffineTransformer
+from .annotation_element_condition_eval import AnnotationElementConditionEval
+from .applied_steps import (
+    DataGroupArrayInPathElementsAppliedStep,
+    DataGroupArrayWithNameElementsAppliedStep,
+    DataGroupInPathAppliedStep,
+    DataGroupsWithNameAppliedStep,
+    GroupToApplyToSelectedStepBase,
+)
 from .bounding_box_to_heatmap_converter import BoundingBoxToHeatmapConverter
 from .color_converter import YCbCrToRGBConverter
 from .dct_wire import (
@@ -13,9 +20,17 @@ from .dct_wire import (
     decompress_jpeg_dct,
     optimize_band_groups,
 )
+from .field_utils import AxesLayoutSetter, TensorSizeAdder, UnneededFieldRemover
 from .image_decoder import ImageDecoder
 from .image_normalizers import ImageMeanStdDevNormalizer, ImageRange01Normalizer
+from .padders import ImageToTileSizePadder, PaddingToUniform, optimize_size_buckets
 from .photo_metric_distorter import PhotoMetricDistorter
+from .selection_steps import (
+    ConditionalElementRemover,
+    CoordinateCropper,
+    PointsInRangeCheck,
+    VisibleBboxSelector,
+)
 from .wire_compression import (
     WirePlanePacker,
     WirePlaneUnpacker,
@@ -25,15 +40,30 @@ from .wire_compression import (
 
 __all__ = [
     "AffineTransformer",
+    "AnnotationElementConditionEval",
+    "AxesLayoutSetter",
     "BatchLevelStepBase",
     "BoundingBoxToHeatmapConverter",
+    "ConditionalElementRemover",
+    "CoordinateCropper",
     "DCTWirePacker",
     "DCTWireUnpacker",
+    "DataGroupArrayInPathElementsAppliedStep",
+    "DataGroupArrayWithNameElementsAppliedStep",
+    "DataGroupInPathAppliedStep",
+    "DataGroupsWithNameAppliedStep",
+    "GroupToApplyToSelectedStepBase",
     "ImageDecoder",
     "ImageMeanStdDevNormalizer",
     "ImageRange01Normalizer",
+    "ImageToTileSizePadder",
+    "PaddingToUniform",
     "PhotoMetricDistorter",
     "PipelineStepBase",
+    "PointsInRangeCheck",
+    "TensorSizeAdder",
+    "UnneededFieldRemover",
+    "VisibleBboxSelector",
     "WirePlanePacker",
     "WirePlaneUnpacker",
     "YCbCrToRGBConverter",
@@ -42,4 +72,5 @@ __all__ = [
     "decompress_jpeg_dct",
     "decompress_plane",
     "optimize_band_groups",
+    "optimize_size_buckets",
 ]

@@ -13,9 +13,14 @@ tensor — then applied on the device:
 
 Composition convention (DALI's): a step combines as ``new @ prior`` and the
 final transform is ``resize @ augmentation``. Probabilistic gating (``prob``)
-is a per-sample ``where``. Ported transformation steps: ``Translation`` and
-``UniformScaling`` (the ones the headline pipeline uses); the others wait
-(ROADMAP.md).
+is a per-sample ``where``. The transformation steps are those of the JAX
+package: ``Translation``, ``ShiftInsideOriginalImage``,
+``ShiftToAlignWithOriginalImageBorder``, ``Rotation``, ``UniformScaling``,
+``NonUniformScaling``, ``Shearing`` and ``Selection``, each with its ordering
+rules, and each drawing in the JAX package's order: a step's own draws in
+``_apply``, then its ``prob`` coin; a ``Selection`` draws its choice, then
+runs every option's steps (and their draws) whichever it chooses. Degrees
+become radians in float32 before ``cos``/``sin``/``tan``, as there.
 
 The input size is a ``(B, 2)`` float32 tensor on the batch's device: the
 images' shape, or each sample's own ``image_hw`` when
@@ -67,6 +72,18 @@ def _translation_mat(tx: torch.Tensor, ty: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _corner_coords(prior: torch.Tensor, image_hw: torch.Tensor):
+    """The prior transform of each sample's upper-left ``(0, 0)`` and
+    lower-right ``(w, h)`` corners, as ``prior @ [x, y, 1]`` (dot order), and
+    their element-wise min and max: ``(B, 2)`` each."""
+    ul = prior[:, :, 2]
+    lr = prior[:, :, 0] * image_hw[:, 1, None] + prior[:, :, 1] * image_hw[:, 0, None] + ul
+    return torch.minimum(ul, lr), torch.maximum(ul, lr)
+
+
+_DEG = float(np.float32(np.pi / 180.0))
+
+
 def _about_center(l00, l01, l10, l11, cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
     """``(B, 2, 3)`` matrix applying the 2x2 linear map about ``(cx, cy)``."""
     tx = cx - (l00 * cx + l01 * cy)
@@ -115,9 +132,13 @@ class AffineTransformer(PipelineStepBase):
             draw = self._rng.uniform(lo, hi, shape=(self._bsz,))
             return batch_tensor(draw, self._device).to(torch.float32)
 
+        def _full(self, value) -> torch.Tensor:
+            """``value`` as float32 for every sample of the batch."""
+            return torch.full((self._bsz,), float(np.float32(value)), device=self._device)
+
         def _get_random_in_range(self, lo, hi) -> torch.Tensor:
             if lo == hi:
-                return torch.full((self._bsz,), float(np.float32(lo)), device=self._device)
+                return self._full(lo)
             return self._uniform(lo, hi)
 
         @staticmethod
@@ -140,12 +161,112 @@ class AffineTransformer(PipelineStepBase):
 
         def _apply(self, prior_trafo, image_hw):
             if self.max_xy is None:
-                tx = torch.full((self._bsz,), float(np.float32(self.min_xy[0])), device=self._device)
-                ty = torch.full((self._bsz,), float(np.float32(self.min_xy[1])), device=self._device)
+                tx, ty = self._full(self.min_xy[0]), self._full(self.min_xy[1])
             else:
                 tx = self._get_random_in_range(self.min_xy[0], self.max_xy[0])
                 ty = self._get_random_in_range(self.min_xy[1], self.max_xy[1])
             return _compose(_translation_mat(tx, ty), prior_trafo)
+
+        def check_prev_types_compatible_and_add_current_type(self, prev_types):
+            return self._simple_add(prev_types)
+
+    class ShiftInsideOriginalImage(TransformationStep):
+        """Random shift keeping the (scaled-up) image covering the viewport.
+
+        Acts per dimension only where the transformed image is larger than
+        the viewport; not allowed after Rotation or Shearing. Draws x, then
+        y, each in the sample's own range."""
+
+        def __init__(self, prob, shift_x: bool, shift_y: bool):
+            super().__init__(prob)
+            self.shift_x = shift_x
+            self.shift_y = shift_y
+
+        def _apply(self, prior_trafo, image_hw):
+            min_coords, max_coords = _corner_coords(prior_trafo, image_hw)
+            view = torch.stack([image_hw[:, 1], image_hw[:, 0]], -1)
+            min_shift = -min_coords
+            max_shift = view - max_coords
+            lo = torch.minimum(min_shift, max_shift)
+            hi = torch.maximum(min_shift, max_shift)
+            dx = self._uniform(lo[:, 0], hi[:, 0])
+            dy = self._uniform(lo[:, 1], hi[:, 1])
+            movable = (min_shift < max_shift).to(torch.float32)
+            dx = dx * (float(self.shift_x) * movable[:, 0])
+            dy = dy * (float(self.shift_y) * movable[:, 1])
+            return _compose(_translation_mat(dx, dy), prior_trafo)
+
+        def check_prev_types_compatible_and_add_current_type(self, prev_types):
+            if (
+                AffineTransformer.Rotation in prev_types
+                or AffineTransformer.Shearing in prev_types
+            ):
+                raise ValueError(
+                    "Cannot perform `ShiftInsideOriginalImage` if rotation or "
+                    "shearing are (potentially) performed before."
+                )
+            return self._simple_add(prev_types)
+
+    class ShiftToAlignWithOriginalImageBorder(TransformationStep):
+        """Shift so the transformed image aligns with one border of the
+        viewport; not allowed after Rotation or Shearing."""
+
+        class Border(Enum):
+            TOP = 0
+            LEFT = 1
+            BOTTOM = 2
+            RIGHT = 3
+
+        def __init__(self, prob,
+                     border: "AffineTransformer.ShiftToAlignWithOriginalImageBorder.Border"):
+            super().__init__(prob)
+            self._border = border
+
+        def _apply(self, prior_trafo, image_hw):
+            min_coords, max_coords = _corner_coords(prior_trafo, image_hw)
+            zero = torch.zeros_like(image_hw[:, 0])
+            b = self.Border
+            if self._border == b.TOP:
+                tx, ty = zero, -min_coords[:, 1]
+            elif self._border == b.LEFT:
+                tx, ty = -min_coords[:, 0], zero
+            elif self._border == b.BOTTOM:
+                tx, ty = zero, image_hw[:, 0] - max_coords[:, 1]
+            elif self._border == b.RIGHT:
+                tx, ty = image_hw[:, 1] - max_coords[:, 0], zero
+            else:
+                raise NotImplementedError(f"Border type {self._border} not supported")
+            return _compose(_translation_mat(tx, ty), prior_trafo)
+
+        def check_prev_types_compatible_and_add_current_type(self, prev_types):
+            if (
+                AffineTransformer.Rotation in prev_types
+                or AffineTransformer.Shearing in prev_types
+            ):
+                raise ValueError(
+                    "Cannot perform `ShiftToAlignWithOriginalImageBorder` if "
+                    "rotation or shearing are (potentially) performed before."
+                )
+            return self._simple_add(prev_types)
+
+    class Rotation(TransformationStep):
+        """Rotate about the image center by a fixed or range-random angle
+        (degrees; the reference's sign convention)."""
+
+        def __init__(self, prob, min_rot: float, max_rot: Optional[float] = None):
+            super().__init__(prob)
+            self.min_rot = min_rot
+            self.max_rot = max_rot
+
+        def _apply(self, prior_trafo, image_hw):
+            if self.max_rot is None:
+                angle = self._full(-np.float32(self.min_rot))
+            else:
+                angle = -self._get_random_in_range(self.min_rot, self.max_rot)
+            rad = angle * _DEG
+            c, s = torch.cos(rad), torch.sin(rad)
+            cx, cy = self._get_center_xy(image_hw)
+            return _compose(_about_center(c, -s, s, c, cx, cy), prior_trafo)
 
         def check_prev_types_compatible_and_add_current_type(self, prev_types):
             return self._simple_add(prev_types)
@@ -160,7 +281,7 @@ class AffineTransformer(PipelineStepBase):
 
         def _apply(self, prior_trafo, image_hw):
             if self.max_scaling is None:
-                s = torch.full((self._bsz,), float(np.float32(self.min_scaling)), device=self._device)
+                s = self._full(self.min_scaling)
             else:
                 s = self._get_random_in_range(self.min_scaling, self.max_scaling)
             zero = torch.zeros_like(s)
@@ -169,6 +290,112 @@ class AffineTransformer(PipelineStepBase):
 
         def check_prev_types_compatible_and_add_current_type(self, prev_types):
             return self._simple_add(prev_types)
+
+    class NonUniformScaling(TransformationStep):
+        """Scale x and y independently about the image center (draws x,
+        then y)."""
+
+        def __init__(
+            self,
+            prob,
+            min_scaling_xy: Sequence[float],
+            max_scaling_xy: Optional[Sequence[float]] = None,
+        ):
+            super().__init__(prob)
+            self.min_scaling_xy = list(min_scaling_xy)
+            self.max_scaling_xy = list(max_scaling_xy) if max_scaling_xy is not None else None
+
+        def _apply(self, prior_trafo, image_hw):
+            if self.max_scaling_xy is None:
+                sx = self._full(self.min_scaling_xy[0])
+                sy = self._full(self.min_scaling_xy[1])
+            else:
+                sx = self._get_random_in_range(self.min_scaling_xy[0], self.max_scaling_xy[0])
+                sy = self._get_random_in_range(self.min_scaling_xy[1], self.max_scaling_xy[1])
+            zero = torch.zeros_like(sx)
+            cx, cy = self._get_center_xy(image_hw)
+            return _compose(_about_center(sx, zero, zero, sy, cx, cy), prior_trafo)
+
+        def check_prev_types_compatible_and_add_current_type(self, prev_types):
+            return self._simple_add(prev_types)
+
+    class Shearing(TransformationStep):
+        """Shear by (x, y) angles in degrees about the image center (draws
+        x, then y)."""
+
+        def __init__(
+            self,
+            prob,
+            min_shearing_xy: Sequence[float],
+            max_shearing_xy: Optional[Sequence[float]] = None,
+        ):
+            super().__init__(prob)
+            self.min_shearing_xy = list(min_shearing_xy)
+            self.max_shearing_xy = (
+                list(max_shearing_xy) if max_shearing_xy is not None else None
+            )
+
+        def _apply(self, prior_trafo, image_hw):
+            if self.max_shearing_xy is None:
+                ax = self._full(self.min_shearing_xy[0])
+                ay = self._full(self.min_shearing_xy[1])
+            else:
+                ax = self._get_random_in_range(self.min_shearing_xy[0], self.max_shearing_xy[0])
+                ay = self._get_random_in_range(self.min_shearing_xy[1], self.max_shearing_xy[1])
+            tx = torch.tan(ax * _DEG)
+            ty = torch.tan(ay * _DEG)
+            one = torch.ones_like(tx)
+            cx, cy = self._get_center_xy(image_hw)
+            return _compose(_about_center(one, tx, ty, one, cx, cy), prior_trafo)
+
+        def check_prev_types_compatible_and_add_current_type(self, prev_types):
+            return self._simple_add(prev_types)
+
+    class Selection(TransformationStep):
+        """Choose one step sequence out of alternatives with the given
+        probabilities, per sample. The choice is drawn first; then every
+        option's steps run (and draw) in order, whichever is chosen."""
+
+        _eps = 1e-6
+
+        def __init__(self, prob, option_probs: Sequence[float], options: Sequence):
+            super().__init__(prob)
+            num_options = len(option_probs)
+            assert len(options) == num_options, (
+                "Number of per-option probabilities and options does not match"
+            )
+            base = AffineTransformer.TransformationStep
+            self._options = [o if not isinstance(o, base) else [o] for o in options]
+            accum = np.cumsum(np.asarray(option_probs, np.float64))
+            assert abs(accum[-1] - 1.0) <= self._eps, (
+                "Probabilities for options do not sum up to 1"
+            )
+            self._accum = [float(a) for a in accum]
+
+        def _apply(self, prior_trafo, image_hw):
+            draw = self._uniform(0.0, 1.0)
+            res = prior_trafo
+            chosen = torch.zeros_like(draw, dtype=torch.bool)
+            for i, accum in enumerate(self._accum):
+                option_res = prior_trafo
+                for s in self._options[i]:
+                    option_res = s(option_res, image_hw, self._rng)
+                within = draw <= accum
+                take = ~chosen & within
+                res = torch.where(take[:, None, None], option_res, res)
+                chosen = chosen | within
+            return res
+
+        def check_prev_types_compatible_and_add_current_type(self, prev_types):
+            res = set(prev_types)
+            for option in self._options:
+                option_types = set(prev_types)
+                for el in option:
+                    option_types = el.check_prev_types_compatible_and_add_current_type(
+                        option_types
+                    )
+                res = res.union(option_types)
+            return res
 
     class ResizingMode(Enum):
         STRETCH = 0

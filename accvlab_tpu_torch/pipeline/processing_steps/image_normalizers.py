@@ -1,8 +1,11 @@
-"""Image normalization steps, batched (port of
+"""Image normalization steps (port of
 ``accvlab_tpu/pipeline/processing_steps/image_normalizers.py``).
 
-Both steps are elementwise per channel, so the batch dimension changes
-nothing in their arithmetic.
+Both steps are ``placement = "any"``: given a numpy image (one sample, on
+the host side of the boundary) they compute in numpy, in the JAX package's
+float32 order; given a torch tensor (the batch, on the device side) they
+compute in torch. Both are elementwise per channel, so the batch dimension
+changes nothing in their arithmetic.
 """
 
 from __future__ import annotations
@@ -29,7 +32,10 @@ class ImageRange01Normalizer(PipelineStepBase):
     def _process(self, data: SampleDataGroup) -> SampleDataGroup:
         for ip in data.find_all_occurrences(self._image_name):
             image = data.get_item_in_path(ip)
-            image = image.to(torch.float32) * float(np.float32(1.0 / 255.0))
+            if isinstance(image, torch.Tensor):
+                image = image.to(torch.float32) * float(np.float32(1.0 / 255.0))
+            else:
+                image = np.asarray(image).astype(np.float32) * np.float32(1.0 / 255.0)
             data.change_type_of_data_and_remove_data(ip, DType.FLOAT)
             data.set_item_in_path(ip, image)
         return data
@@ -74,13 +80,18 @@ class ImageMeanStdDevNormalizer(PipelineStepBase):
 
     def _process(self, data: SampleDataGroup) -> SampleDataGroup:
         t_type = torch_dtype_for(self._output_type)
+        np_type = numpy_dtype_for(self._output_type)
         for ip in data.find_all_occurrences(self._image_name):
             image = data.get_item_in_path(ip)
-            mean = torch.as_tensor(self._mean, device=image.device)
-            inv_std = torch.as_tensor(self._inv_std, device=image.device)
-            image = (image.to(t_type) - mean) * inv_std
+            if isinstance(image, torch.Tensor):
+                mean = torch.as_tensor(self._mean, device=image.device)
+                inv_std = torch.as_tensor(self._inv_std, device=image.device)
+                image = ((image.to(t_type) - mean) * inv_std).to(t_type)
+            else:
+                image = ((np.asarray(image).astype(np_type) - self._mean) * self._inv_std
+                         ).astype(np_type)
             data.change_type_of_data_and_remove_data(ip, self._output_type)
-            data.set_item_in_path(ip, image.to(t_type))
+            data.set_item_in_path(ip, image)
         return data
 
     def _check_and_adjust_data_format_input_to_output(

@@ -6,9 +6,12 @@ an explicit :class:`RandomContext`:
 * :class:`HostRandomContext` — numpy ``Generator`` (host steps, per sample),
 * :class:`DeviceRandomContext` — a ``torch.Generator`` seeded from
   ``(seed, batch_idx[, echo])`` (device steps, batched). The draws (a few
-  scalars per sample) are made on the CPU and moved to the batch's device,
-  so a run on the card and a run on the CPU see the same numbers. It cannot
-  reproduce the JAX package's threefry bits; parity tests script both sides.
+  scalars per sample) are made on the CPU and moved to the batch's device
+  by an asynchronous copy from pinned memory (no host-card synchronisation),
+  so a run on the card and a run on the CPU see the same numbers. Bounds
+  may be tensors on the device (one range per sample); the draw is then
+  scaled there. It cannot reproduce the JAX package's threefry bits; parity
+  tests script both sides.
 * :class:`ScriptedRandomContext` — returns scripted sequences matched by
   value range; the test-injection pattern of the reference's
   ``DaliFakeRandomGenerator``.
@@ -82,10 +85,15 @@ class DeviceRandomContext(RandomContext):
         self._device = torch.device(device)
 
     def _out(self, x):
+        if self._device.type == "cuda":
+            # the caching host allocator keeps the pinned block until the copy is done
+            return x.pin_memory().to(self._device, non_blocking=True)
         return x.to(self._device)
 
     def uniform(self, low=0.0, high=1.0, shape=()):
         u = torch.rand(tuple(shape), generator=self._gen, dtype=torch.float32)
+        if isinstance(low, torch.Tensor) or isinstance(high, torch.Tensor):
+            return self._out(u) * (high - low) + low  # per-sample ranges, on the device
         return self._out(u * (float(high) - float(low)) + float(low))
 
     def normal(self, mean=0.0, stddev=1.0, shape=()):

@@ -59,6 +59,39 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              twice the transfers, the replays of a host batch different,
              delivered frames/s; a mid-echo get_state, a fresh pipeline and
              set_state continue bitwise for 3 batches;
+   det2d   — the 2-D detection example's counterpart
+             (accvlab_tpu_torch/object_detection_2d_pipeline.py) at bench.py's
+             width (BenchNuScenesProvider: bench.py's cached q90 JPEGs, 6 cams
+             of 372x1024, 32 boxes of 10 classes; batch 8 -> 256x704,
+             heatmaps 10x64x176) on its DCT wire (optimize_band_groups, 16
+             groups), through StructuredOutputIterator.CreateAsDataLoaderObject:
+             2 warm-up batches, one timed window of DET2D_BATCHES (frames/s),
+             the epoch's end and the next epoch's first batch, timed by the
+             port's Stopwatch and traced (build/det2d_trace.json: every span
+             and instant name present, each span's start before its end);
+             the rasterizer once per delivered batch; batch 0 recomputed on
+             the CPU (images within DET2D_IMAGE_LEVELS in at most a share
+             DET2D_IMAGE_SHARE of the values, heatmaps rtol 1e-6, the
+             rest within 1e-5 or equal);
+   steps_2d — one full-width pipeline through every 2-D step: on the
+             host VisibleBboxSelector (per camera, through an applied-step
+             wrapper), AnnotationElementConditionEval and
+             ConditionalElementRemover, ImageToTileSizePadder and
+             PaddingToUniform with optimize_size_buckets' buckets; on the card
+             an AffineTransformer per camera (NonUniformScaling, both shift
+             steps, a Selection of Rotation, Shearing and scaling), then
+             TensorSizeAdder, PointsInRangeCheck, CoordinateCropper, a
+             condition, AxesLayoutSetter and UnneededFieldRemover: a few
+             batches through run(), then one host batch's device stage on
+             the card under torch.cuda.set_sync_debug_mode("error") and on
+             the CPU (images within 1, boxes 1e-6 relative, the rest equal),
+             its device ms and launches per batch;
+   workers — the YUV wire (WIRE_DECODER) and the DCT wire, each with
+             worker_mode="thread" and "process": one window of WORKER_BATCHES
+             each (frames/s, the consumer's ms per batch, producer busy);
+             process batch 0 bitwise the thread batch 0; a process-mode
+             get_state after the window, a fresh process pipeline and
+             set_state continue bitwise for 3 batches;
 8. train_parity — a seeded CenterNet (width 64) on make_example_batch, on
              the card and on the CPU (the port's plain path): loss, heads
              and parameter gradients within the bf16 tolerances stated in
@@ -78,7 +111,7 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              with CUDA events, peak memory, conv FLOPs per second as a share
              of the bf16 peak), then one step under
              torch.cuda.set_sync_debug_mode("error");
-10. input_idle — bench_pipeline.measure_input_idle(pipe, 6, n_iters=50,
+10. input_idle — bench_pipeline.measure_input_idle(pipe, 6, n_iters=IDLE_ITERS,
              width=64) on the YUV wire (WIRE_DECODER, with its counts), on
              raw frames and on the DCT wire: t_e2e, t_comp, idle and the
              pipeline's input_bound_frac of each;
@@ -115,9 +148,9 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
 15. the {"kernels": [...]} line, the nvidia-smi line, and last the result
    line {"ok": true, "device": {...}}.
 
-The pipeline phases (main, main_yuv, main_frames, echo, train, input_idle, petr) each count
-the rasterizer's launches from 0 and fail unless it ran once per delivered
-pipeline batch. The encoded JPEGs are kept in build/bench_cache (bench.py's
+The pipeline phases (main, main_yuv, main_frames, echo, det2d, workers, train, input_idle,
+petr) each count the rasterizer's launches from 0 and fail unless it ran once per delivered
+pipeline batch; the kernels line's draw_gaussians launches are main's and det2d's. The encoded JPEGs are kept in build/bench_cache (bench.py's
 cache format) for the phases after the first.
 
 Exits non-zero without a result when torch.cuda.is_available() is false.
@@ -185,9 +218,35 @@ TRAIN_TOL = {"loss": 2e-2, "heads": 3e-2, "grads": 1e-1, "grad_cosine": 0.99}
 GOLDENS = os.path.join("tests", "data", "goldens", "heatmap_goldens.npz")
 SOURCE = "accvlab_tpu_torch/heatmap/csrc/draw_heatmap.cu"
 AUCTION_SOURCE = "accvlab_tpu_torch/ragged/csrc/auction_matching.cu"
+# the widths of det2d, steps_2d and workers: bench.py's
+WIDTH = {"hw": (372, 1024), "out_hw": (256, 704), "heatmap_hw": (64, 176), "cams": 6,
+         "batch": 8}
+DET2D_BATCHES = 100  # det2d's timed window
+STEPS_2D_BATCHES = 5
+# about 400 ms of the card's clock: longer than the host takes to enqueue
+# steps_2d's device stage (45-189 ms on an H100 host)
+STEPS_2D_SLEEP_CYCLES = 800_000_000
+# each workers window: four windows and four process pools (9-14 s each
+# to start on an 8-core H100 host) make this phase the script's dearest
+WORKER_BATCHES = 30
+# det2d's images, card against CPU: both sides run the port's own DCT
+# decode, whose planes agree (dct_wire), so only the colour conversion, the
+# warp and the distortion's float order differ: within 1 uint8 level, in at
+# most this share of the values
+DET2D_IMAGE_LEVELS = 1
+DET2D_IMAGE_SHARE = 1e-3
+# the executor's trace: producer spans, consumer spans, instants
+TRACE_NAMES = ("host_build", "queue_put", "consumer_wait", "device_dispatch", "epoch_end",
+               "reset")
+
+
+T_START = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the start."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -695,7 +754,8 @@ def main_frames_phase(dev, card: str):
 
 def kernel_counts(fn):
     """``fn()`` once under torch.profiler: its device kernels, memsets and
-    copies, counted from the profiler's CUDA rows."""
+    copies, counted from the profiler's CUDA rows, and ``busy_ms``, the sum
+    of their device times (gaps between them left out)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -703,25 +763,36 @@ def kernel_counts(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    counts = {"kernels": 0, "memsets": 0, "copies": 0}
+    counts = {"kernels": 0, "memsets": 0, "copies": 0, "busy_ms": 0.0}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         kind = ("copies" if e.key.startswith("Memcpy") else
                 "memsets" if e.key.startswith("Memset") else "kernels")
         counts[kind] += e.count
+        counts["busy_ms"] += e.self_device_time_total / 1e3
     return counts
 
 
-def decode_readings(run_step, reps: int = N_TIMED) -> dict:
+def decode_readings(run_step, reps: int = N_TIMED, sleep_cycles: int = DECODE_SLEEP_CYCLES
+                    ) -> dict:
     """Device ms of ``run_step()`` (CUDA events, the stream held by a sleep
-    while the host enqueues, so the events see the device work only; median
-    and spread of ``reps``), its host enqueue ms, and its launches."""
+    of ``sleep_cycles`` while the host enqueues, so the events see the device
+    work only; median and spread of ``reps``), its host enqueue ms beside the
+    hold's own ms (the reading is clean when the enqueue is the shorter), and
+    its launches."""
     run_step()  # constants on the card, allocator warm
     dev_ms, host_ms = [], []
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    torch.cuda._sleep(sleep_cycles)
+    e1.record()
+    torch.cuda.synchronize()
+    hold_ms = e0.elapsed_time(e1)
     for _ in range(reps):
         torch.cuda.synchronize()
-        torch.cuda._sleep(DECODE_SLEEP_CYCLES)
+        torch.cuda._sleep(sleep_cycles)
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
         t0 = time.perf_counter()
@@ -732,7 +803,7 @@ def decode_readings(run_step, reps: int = N_TIMED) -> dict:
         dev_ms.append(e0.elapsed_time(e1))
     return {"device_ms": float(np.median(dev_ms)), "device_ms_min": float(min(dev_ms)),
             "device_ms_max": float(max(dev_ms)), "enqueue_host_ms": float(np.median(host_ms)),
-            "launches": kernel_counts(run_step)}
+            "hold_ms": hold_ms, "launches": kernel_counts(run_step)}
 
 
 def dct_wire_phase(dev, card: str):
@@ -788,7 +859,7 @@ def dct_wire_phase(dev, card: str):
           "images": len(coef_cpu["y"]), "planes_vs_cpu": planes, "sync_free_decode": True,
           "decode_device_ms_per_batch": readings["device_ms"],
           "decode_device_ms_min_max": [readings["device_ms_min"], readings["device_ms_max"]],
-          "decode_enqueue_host_ms": readings["enqueue_host_ms"],
+          "decode_enqueue_host_ms": readings["enqueue_host_ms"], "hold_ms": readings["hold_ms"],
           "decode_launches_per_batch": readings["launches"], "timed": N_TIMED,
           "bytes_per_batch": int(sum(a.nbytes for a in host)),
           "wire_fields_per_batch": len(host), "grouping": [list(g) for g in packer.groups],
@@ -1204,6 +1275,451 @@ def input_idle_phase(dev, card: str):
                              if wire == "yuv" else {})}
     emit({"phase": "input_idle", "card": card, "n_iters": IDLE_ITERS, **readings["yuv"],
           "frames": readings["frames"], "dct": readings["dct"]})
+
+
+# --------------------------------------------------------------------- #
+# the 2-D detection example, the 2-D steps, the process workers         #
+# --------------------------------------------------------------------- #
+
+
+def trace_check(doc: dict, phase: str) -> dict:
+    """Every span name of the executor's trace present, each span's start
+    before its end; returns the count of each event name."""
+    counts = {}
+    for e in doc["traceEvents"]:
+        if e.get("ph") == "M":
+            continue
+        counts[e["name"]] = counts.get(e["name"], 0) + 1
+        if e["ph"] == "X" and not (e["ts"] >= 0.0 and e["dur"] >= 0.0):
+            fail(f"{phase}: span {e['name']} has start {e['ts']} and duration {e['dur']}")
+    missing = set(TRACE_NAMES) - set(counts)
+    if missing:
+        fail(f"{phase}: the trace lacks {sorted(missing)} (has {counts})")
+    return counts
+
+
+def levels_vs(got: torch.Tensor, want: torch.Tensor, std) -> dict:
+    """Normalized images as uint8 levels (times each channel's std): the
+    largest difference and the share of values that differ."""
+    d = (got.cpu().double() - want.double()).abs() * torch.tensor(std, dtype=torch.float64)
+    return {"max_levels": float(d.max()), "differing_share": float((d > 1e-3).double().mean())}
+
+
+def det2d_phase(dev, card: str):
+    """The 2-D detection example's counterpart at bench.py's full width,
+    through its StructuredOutputIterator (DataLoader-masked), on its DCT
+    wire: 2 warm-up batches, one timed window of DET2D_BATCHES, the epoch's
+    end and the next epoch's first batch, with the Stopwatch and the trace;
+    batch 0 recomputed on the CPU."""
+    from accvlab_tpu_torch.heatmap import LAUNCHES, reset_launch_counts
+    from accvlab_tpu_torch.object_detection_2d_pipeline import (
+        BenchNuScenesProvider,
+        build_pipeline,
+    )
+    from accvlab_tpu_torch.tools import Stopwatch
+
+    batch, cams = WIDTH["batch"], WIDTH["cams"]
+    n_epoch = 2 + DET2D_BATCHES  # the warm-up batches, then the window: one epoch
+    kw = dict(batch_size=batch, wire="dct", image_hw=WIDTH["hw"], out_hw=WIDTH["out_hw"],
+              heatmap_hw=WIDTH["heatmap_hw"], num_threads=os.cpu_count() or 8)
+    provider = BenchNuScenesProvider(num_samples=n_epoch * batch, image_hw=WIDTH["hw"],
+                                     num_cameras=cams, cache_dir=CACHE_DIR)
+    t0 = time.perf_counter()
+    loader, pipe = build_pipeline(device=dev, provider=provider, **kw)
+    setup_s = time.perf_counter() - t0
+    if not isinstance(loader, torch.utils.data.DataLoader) or len(loader) != n_epoch:
+        fail(f"det2d: the loader is not a DataLoader of {n_epoch} batches")
+    Stopwatch._reset_singleton()
+    sw = Stopwatch()
+    sw.enable(num_warmup_iters=2, print_every_n_iters=None, do_device_sync=True)
+    trace_path = os.path.join(os.path.dirname(CACHE_DIR), "det2d_trace.json")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    pipe.start_trace()
+    try:
+        it = iter(loader)
+        first = None
+        for i in range(n_epoch):
+            if i == 2:
+                torch.cuda.synchronize()
+                t_win = time.perf_counter()
+            sw.start_meas("batch")
+            b = next(it)
+            sw.end_meas("batch")
+            sw.finish_iter()
+            if i == 0:
+                first = {k: v.clone() for k, v in flat_outputs(b).items()}
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t_win
+        last = flat_outputs(b)
+        try:
+            next(it)
+            fail("det2d: the epoch did not end after its batches")
+        except StopIteration:
+            pass
+        next(iter(loader))  # the iterator front resets: the next epoch's first batch
+        torch.cuda.synchronize()
+        launches = LAUNCHES["draw_gaussians"]
+        trace = pipe.stop_trace()
+        stats = pipe.stats()
+    finally:
+        pipe.stop()
+    trace.save(trace_path)
+    counts = trace_check(trace.to_dict(), "det2d")
+    delivered = n_epoch + 1
+    if launches != delivered:
+        fail(f"det2d: draw_gaussians launched {launches} times for {delivered} batches")
+    if counts["device_dispatch"] != delivered or counts["consumer_wait"] != delivered:
+        fail(f"det2d: the trace has {counts} for {delivered} delivered batches")
+    check_det2d_outputs(last, cams, batch)
+
+    # batch 0 on the CPU: the same host batch, the same draws (the device
+    # context's generator is a CPU one)
+    cpu_loader, cpu_pipe = build_pipeline(device="cpu", provider=provider, **kw)
+    try:
+        ref = flat_outputs(next(iter(cpu_loader)))
+    finally:
+        cpu_pipe.stop()
+    std = [57.4, 57.1, 58.4]
+    images, worst = {}, {}
+    for name, want in ref.items():
+        got = first[name]
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"det2d: {name} is {tuple(got.shape)} {got.dtype} on the card, "
+                 f"{tuple(want.shape)} {want.dtype} on the CPU")
+        if name.endswith(".image"):
+            images[name] = levels_vs(got, want, std)
+            if (images[name]["max_levels"] > DET2D_IMAGE_LEVELS + 1e-3
+                    or images[name]["differing_share"] > DET2D_IMAGE_SHARE):
+                fail(f"det2d: {name} differs from the CPU by {images[name]}")
+        elif name.endswith("heatmap"):
+            if not torch.allclose(got.cpu(), want, rtol=1e-6, atol=0.0):
+                fail(f"det2d: {name} differs from the CPU beyond rtol 1e-6")
+            worst["heatmap"] = max(worst.get("heatmap", 0.0),
+                                   float((got.cpu() - want).abs().max()))
+        elif got.dtype.is_floating_point:
+            err = float((got.cpu() - want).abs().max())
+            worst[name.split(".")[-1]] = max(worst.get(name.split(".")[-1], 0.0), err)
+            if err > 1e-5:
+                fail(f"det2d: {name} differs from the CPU by {err}")
+        elif not torch.equal(got.cpu(), want):
+            fail(f"det2d: {name} differs from the CPU")
+    fps = DET2D_BATCHES * batch * cams / window_s
+    emit({"phase": "det2d", "card": card, "frames_per_s": fps,
+          "ms_per_batch": window_s / DET2D_BATCHES * 1e3, "batches": DET2D_BATCHES,
+          "stopwatch_batch_ms": sw.get_mean_time("batch") * 1e3,
+          "stopwatch_batches": sw.get_num_nonwarmup_iters_measured(),
+          "draw_gaussians_launches": launches, "delivered": delivered,
+          "trace_events": counts, "trace": os.path.relpath(trace_path),
+          "bytes_per_batch": stats["bytes_per_batch"], "producer_busy_s": stats["producer_busy_s"],
+          "consumer_wait_s": stats["consumer_wait_s"], "device_stage_s": stats["device_stage_s"],
+          "input_bound_frac": stats["input_bound_frac"], "setup_s": setup_s,
+          "cpu_recompute": {"images_levels": max(v["max_levels"] for v in images.values()),
+                            "images_differing_share": max(v["differing_share"]
+                                                          for v in images.values()),
+                            "max_abs_err": worst},
+          "config": "object_detection_2d_pipeline at bench width: 6 cams x 372x1024 q90 JPEG "
+                    "(bench.py's 16 sets, 32 boxes of 10 classes), DCT wire (dp16 over 3 "
+                    "JPEGs), batch 8 -> 256x704, heatmap 10x64x176, StructuredOutputIterator"})
+    return launches
+
+
+def flat_outputs(batch) -> dict:
+    """A structured (nested dict) batch as ``{"cameras.0.image": tensor}``."""
+    out = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}{k}.")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}{i}.")
+        else:
+            out[prefix[:-1]] = node
+
+    walk(batch, "")
+    return out
+
+
+def check_det2d_outputs(out: dict, cams: int, batch: int) -> None:
+    h, w = WIDTH["hw"]
+    for c in range(cams):
+        p = f"cameras.{c}."
+        img, hm = out[p + "image"], out[p + "annotations.heatmap"]
+        if tuple(img.shape) != (batch, *WIDTH["out_hw"], 3) or img.device.type != "cuda":
+            fail(f"det2d: {p}image is {tuple(img.shape)} on {img.device}")
+        if tuple(hm.shape) != (batch, 10, *WIDTH["heatmap_hw"]) or float(hm.max()) != 1.0:
+            fail(f"det2d: {p}heatmap is {tuple(hm.shape)}, max {float(hm.max())}")
+        if not torch.isfinite(img).all():
+            fail(f"det2d: {p}image has non-finite values")
+        hw = out[p + "image_hw"]
+        if hw.shape != (batch, 2) or not bool((hw[:, 0] == h).all() & (hw[:, 1] == w).all()):
+            fail(f"det2d: {p}image_hw is {hw[0].tolist()}, not the JPEG's {h}x{w}")
+
+
+def steps_2d_provider(num_samples: int):
+    """bench.py's raw frames (6 cameras of 372x1024, 32 boxes of 10 classes)
+    with a depth per box, for the ``steps_2d`` pipeline."""
+    from accvlab_tpu_torch.pipeline import DType, SampleDataGroup
+    from accvlab_tpu_torch.pipeline.inputs import MultiCameraSyntheticProvider
+
+    class WithDepths(MultiCameraSyntheticProvider):
+        @property
+        def sample_data_structure(self):
+            cam = SampleDataGroup()
+            cam.add_data_field("image", DType.UINT8)
+            cam.add_data_field("image_hw", DType.INT32)
+            ann = SampleDataGroup()
+            for name, t in (("bboxes", DType.FLOAT), ("categories", DType.INT32),
+                            ("depths", DType.FLOAT)):
+                ann.add_data_field(name, t)
+            cam.add_data_group_field("annotations", ann)
+            root = SampleDataGroup()
+            root.add_data_group_field_array("cameras", cam, WIDTH["cams"])
+            return root
+
+        def get_data(self, sample_index):
+            sdg = super().get_data(sample_index)
+            rng = np.random.default_rng(10_000 + sample_index)
+            for c in range(WIDTH["cams"]):
+                sdg["cameras"][c]["annotations"]["depths"] = \
+                    rng.uniform(1.0, 80.0, 32).astype(np.float32)
+            return sdg
+
+    return WithDepths(num_samples=num_samples, num_unique=2, hw=WIDTH["hw"],
+                      num_cams=WIDTH["cams"])
+
+
+def steps_2d_definition(provider, buckets):
+    """The pipeline of ``steps_2d``: every step this slice ported."""
+    from accvlab_tpu_torch.pipeline import PipelineDefinition
+    from accvlab_tpu_torch.pipeline.inputs import ShuffledShardedInputCallable
+    from accvlab_tpu_torch.pipeline.processing_steps import (
+        AffineTransformer as A,
+        AnnotationElementConditionEval,
+        AxesLayoutSetter,
+        ConditionalElementRemover,
+        CoordinateCropper,
+        DataGroupArrayWithNameElementsAppliedStep,
+        ImageToTileSizePadder,
+        PaddingToUniform,
+        PointsInRangeCheck,
+        TensorSizeAdder,
+        UnneededFieldRemover,
+        VisibleBboxSelector,
+    )
+
+    border = A.ShiftToAlignWithOriginalImageBorder
+    out_x, out_y = WIDTH["out_hw"][1] - 1.0, WIDTH["out_hw"][0] - 1.0
+    steps = [
+        # host, per sample
+        DataGroupArrayWithNameElementsAppliedStep(VisibleBboxSelector(
+            "bboxes", ("annotations", "visible"), image_hw_field_name="image_hw",
+            depths_field_name="depths", minimum_bbox_size=12.0), "cameras"),
+        AnnotationElementConditionEval("annotations", "keep = visible and depths < 70", False),
+        ConditionalElementRemover("annotations", "keep",
+                                  ["bboxes", "categories", "depths", "visible"], [0, 0, 0, 0],
+                                  remove_mask_field=True),
+        ImageToTileSizePadder("image", 32),
+        # host, batch level
+        PaddingToUniform(["bboxes", "categories", "depths", "visible"], fill_value=0,
+                         size_buckets=buckets, bucket_dims=(0,)),
+        # device: the wrapped AffineTransformer is the first device step, so
+        # the "any" steps after it run on the batch's tensors
+        DataGroupArrayWithNameElementsAppliedStep(A(
+            output_hw=WIDTH["out_hw"], resizing_mode=A.ResizingMode.STRETCH,
+            image_field_names="image", point_field_names="bboxes",
+            transformation_steps=[
+                A.NonUniformScaling(0.5, [0.9, 0.9], [1.25, 1.2]),
+                A.ShiftInsideOriginalImage(0.5, True, True),
+                border(0.3, border.Border.BOTTOM),
+                A.Selection(1.0, [0.4, 0.3, 0.3], [
+                    A.Rotation(1.0, -10.0, 10.0),
+                    A.Shearing(1.0, [-6.0, -6.0], [6.0, 6.0]),
+                    [A.NonUniformScaling(1.0, [0.8, 0.9], [1.1, 1.2]),
+                     border(1.0, border.Border.LEFT)]]),
+            ]), "cameras"),
+        TensorSizeAdder("image", "_out_hw"),
+        PointsInRangeCheck("bboxes", "in_view", [0.0] * 4, [out_x, out_y, out_x, out_y]),
+        CoordinateCropper("bboxes", [0.0] * 4, [out_x, out_y, out_x, out_y]),
+        AnnotationElementConditionEval("annotations", "usable = in_view and categories < 8",
+                                       False),
+        AxesLayoutSetter("image", "CHW"),
+        UnneededFieldRemover(["depths"]),
+    ]
+    inp = ShuffledShardedInputCallable(provider, batch_size=WIDTH["batch"], shuffle=True)
+    return PipelineDefinition(inp, steps, check_data_format=False,
+                              copy_external_source_passthrough_outputs=False)
+
+
+def steps_2d_phase(dev, card: str):
+    """One full-width pipeline through every step of this slice: its host
+    steps in the producer for STEPS_2D_BATCHES batches; its device stage on
+    one host batch on the card (under the sync check) and on the CPU."""
+    from accvlab_tpu_torch.pipeline.processing_steps import optimize_size_buckets
+
+    batch, cams = WIDTH["batch"], WIDTH["cams"]
+    provider = steps_2d_provider(num_samples=batch * (STEPS_2D_BATCHES + 4))
+    # buckets from the kept-box counts of a probe of 16 samples
+    probe_def = steps_2d_definition(provider, None)
+    probe = probe_def.get_pipeline(batch_size=batch, num_threads=os.cpu_count() or 8,
+                                   device="cpu")
+    try:
+        counts = []
+        for _ in range(2):
+            host = probe._produce_host_batch()[3]
+            names = probe._host_out_blueprint.field_names_flat
+            counts += [int(host[names.index(f"cameras.[{c}].annotations.visible")].shape[1])
+                       for c in range(cams)]
+    finally:
+        probe.stop()
+    buckets = optimize_size_buckets(counts + [32], 3)
+    definition = steps_2d_definition(provider, buckets)
+    threads = os.cpu_count() or 8
+    pipe = definition.get_pipeline(batch_size=batch, num_threads=threads, device=dev, seed=2)
+    try:
+        t0 = time.perf_counter()
+        outs = [pipe.run() for _ in range(STEPS_2D_BATCHES)]
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        stats = pipe.stats()
+    finally:
+        pipe.stop()
+    # one host batch (a pipeline whose producer never started) through the
+    # device steps on the card and on the CPU
+    pipe = definition.get_pipeline(batch_size=batch, num_threads=threads, device=dev, seed=2)
+    cpu = definition.get_pipeline(batch_size=batch, num_threads=threads, device="cpu", seed=2)
+    try:
+        batch_idx, _, _, host = pipe._produce_host_batch()
+        leaves = pipe._transfer(host)
+        pipe.run_device_stage(leaves, batch_idx)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = pipe.run_device_stage(leaves, batch_idx)
+        except RuntimeError as e:
+            fail(f"steps_2d: the device steps synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        want = cpu.run_device_stage([torch.from_numpy(a) for a in host], batch_idx)
+        readings = decode_readings(lambda: pipe.run_device_stage(leaves, batch_idx), reps=10,
+                                   sleep_cycles=STEPS_2D_SLEEP_CYCLES)
+    finally:
+        pipe.stop()
+        cpu.stop()
+    names = pipe.output_names
+    errors = {"image_levels": 0, "image_differing_share": 0.0, "bboxes_rel": 0.0}
+    for name, g, w in zip(names, got, want):
+        g = g.cpu()
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"steps_2d: {name} is {tuple(g.shape)} {g.dtype} on the card, "
+                 f"{tuple(w.shape)} {w.dtype} on the CPU")
+        if name.endswith(".image"):
+            d = (g.to(torch.int32) - w.to(torch.int32)).abs()
+            errors["image_levels"] = max(errors["image_levels"], int(d.max()))
+            errors["image_differing_share"] = max(errors["image_differing_share"],
+                                                  float((d > 0).double().mean()))
+        elif name.endswith("bboxes"):
+            rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            errors["bboxes_rel"] = max(errors["bboxes_rel"], rel)
+        elif not torch.equal(g, w):
+            fail(f"steps_2d: {name} differs between the card and the CPU")
+    if errors["image_levels"] > 1 or errors["image_differing_share"] > 0.02 \
+            or errors["bboxes_rel"] > 1e-6:
+        fail(f"steps_2d: the card differs from the CPU beyond the CPU tests' tolerances: {errors}")
+    out = outs[-1]
+    img = out["cameras.[0].image"]
+    if tuple(img.shape) != (batch, 3, *WIDTH["out_hw"]) or "cameras.[0].annotations.depths" in out:
+        fail(f"steps_2d: unexpected outputs {tuple(img.shape)}, {sorted(out)[:6]}")
+    if out["cameras.[0].image_out_hw"].cpu().tolist() != [list(WIDTH["out_hw"])] * batch:
+        fail(f"steps_2d: TensorSizeAdder did not record the warped {WIDTH['out_hw']}")
+    emit({"phase": "steps_2d", "card": card, "buckets": buckets,
+          "kept_boxes_probe": sorted(counts),
+          "boxes_per_camera": int(out["cameras.[0].annotations.bboxes"].shape[1]),
+          "batches": STEPS_2D_BATCHES, "ms_per_batch": run_s / STEPS_2D_BATCHES * 1e3,
+          "producer_busy_ms_per_batch": stats["producer_busy_s"] / max(stats["produced"], 1) * 1e3,
+          "device_ms_per_batch": readings["device_ms"],
+          "device_ms_min_max": [readings["device_ms_min"], readings["device_ms_max"]],
+          "device_busy_ms_per_batch": readings["launches"]["busy_ms"],
+          "enqueue_host_ms": readings["enqueue_host_ms"], "hold_ms": readings["hold_ms"],
+          "launches_per_batch": readings["launches"], "vs_cpu": errors,
+          "sync_free_device_steps": True,
+          "config": "raw frames 6 cams x 372x1024 (32 boxes + depths), batch 8: host "
+                    "VisibleBboxSelector (per camera), condition eval + remover, tile pad to 32, "
+                    "PaddingToUniform (DP buckets); device AffineTransformer per camera (shifts, "
+                    "Selection of rotation / shear / scaling) -> 256x704, TensorSizeAdder, "
+                    "PointsInRangeCheck, CoordinateCropper, condition eval, CHW, field remover"})
+
+
+def workers_wire(dev, wire: str) -> dict:
+    """``wire`` with thread and with process workers: one timed window
+    each; the process batch 0 bitwise the thread batch 0; a process-mode
+    get_state after the window, a fresh process pipeline and set_state
+    continue bitwise for RESUME_BATCHES batches."""
+    from accvlab_tpu_torch.bench_pipeline import build_pipeline
+
+    batch, cams = WIDTH["batch"], WIDTH["cams"]
+    kw = dict(batch_size=batch, device=dev, cache_dir=CACHE_DIR, wire=wire, hw=WIDTH["hw"],
+              num_cams=cams, out_hw=WIDTH["out_hw"], heatmap_hw=WIDTH["heatmap_hw"],
+              **({"decoder": WIRE_DECODER} if wire == "yuv" else {}))
+    res, kept = {}, {}
+    for mode in ("thread", "process"):
+        t0 = time.perf_counter()
+        pipe = build_pipeline(worker_mode=mode, **kw)
+        try:
+            kept[mode] = {k: v.clone() for k, v in pipe.run().items()}
+            pipe.run()
+            torch.cuda.synchronize()
+            start_s = time.perf_counter() - t0
+            stats0 = pipe.stats()
+            (window_s, out), launches = count_launches(
+                lambda: timed_windows(pipe, 1, WORKER_BATCHES))
+            stats = pipe.stats()
+            if mode == "thread":
+                kept["after"] = [{k: v.clone() for k, v in pipe.run().items()}
+                                 for _ in range(RESUME_BATCHES)]
+            else:
+                state = json.loads(json.dumps(pipe.get_state()))
+        finally:
+            pipe.stop()
+        if launches != WORKER_BATCHES:
+            fail(f"workers ({wire}, {mode}): draw_gaussians launched {launches} times for "
+                 f"{WORKER_BATCHES} batches")
+        check_outputs(out, cams, batch)
+        n = stats["consumed"] - stats0["consumed"]
+        busy = stats["producer_busy_s"] - stats0["producer_busy_s"]
+        res[mode] = {
+            "frames_per_s": WORKER_BATCHES * batch * cams / window_s[0],
+            "ms_per_batch": window_s[0] / WORKER_BATCHES * 1e3,
+            "consumer_ms_per_batch": (stats["device_stage_s"] - stats0["device_stage_s"]) / n * 1e3,
+            "consumer_wait_ms_per_batch":
+                (stats["consumer_wait_s"] - stats0["consumer_wait_s"]) / n * 1e3,
+            "producer_busy_ms_per_batch": busy / (stats["produced"] - stats0["produced"]) * 1e3,
+            "input_bound_frac": stats["input_bound_frac"], "start_s": start_s,
+            "draw_gaussians_launches": launches}
+    for k, v in kept["thread"].items():
+        if not torch.equal(v, kept["process"][k]):
+            fail(f"workers ({wire}): process-mode batch 0 field {k} differs from thread mode")
+    fresh = build_pipeline(worker_mode="process", **kw)
+    try:
+        fresh.set_state(state)
+        for i in range(RESUME_BATCHES):
+            for k, v in fresh.run().items():
+                if not torch.equal(v, kept["after"][i][k]):
+                    fail(f"workers ({wire}): after the process-mode resume, batch {i} field {k} "
+                         "differs")
+    finally:
+        fresh.stop()
+    return {**res, "process_batch0_bitwise_thread": True, "state": state,
+            "resumed_batches_bitwise": RESUME_BATCHES}
+
+
+def workers_phase(dev, card: str):
+    emit({"phase": "workers", "card": card, "batches": WORKER_BATCHES,
+          "workers": os.cpu_count(), "yuv": workers_wire(dev, "yuv"),
+          "dct": workers_wire(dev, "dct"), "decoder": WIRE_DECODER})
 
 
 # --------------------------------------------------------------------- #
@@ -1734,6 +2250,9 @@ def main() -> int:
     dct_wire_phase(dev, card)
     wire_phase(dev, card)
     echo_phase(dev, card)
+    det2d_launches = det2d_phase(dev, card)
+    steps_2d_phase(dev, card)
+    workers_phase(dev, card)
     affine_sizes_phase(dev, card)
     train_parity_phase(dev)
     train_phase(dev, card)
@@ -1749,13 +2268,16 @@ def main() -> int:
         rx = results[(k, "main", True)]
         kernels.append({
             "name": ENTRY[k], "route": "cuda", "source": SOURCE, "replaces": replaces[k],
-            "launches": main_launches[ENTRY[k]] if k == "gaussians" else entry_launches[ENTRY[k]],
+            "launches": (main_launches[ENTRY[k]] + det2d_launches if k == "gaussians"
+                         else entry_launches[ENTRY[k]]),
             "max_abs_err": max(r["max_abs_err"], rx["max_abs_err"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "entry_ms": r["entry_ms"],
             "exact_ms": rx["ms"], "exact_plain_ms": rx["plain_ms"],
             "exact_bound_ms": rx["bound_ms"], "exact_entry_ms": rx["entry_ms"],
-            "launches_from": "main path" if k == "gaussians" else "entry-point drive",
+            "launches_from": (f"main path ({main_launches[ENTRY[k]]}) and det2d "
+                              f"({det2d_launches})" if k == "gaussians"
+                              else "entry-point drive"),
         })
     m = matching["example_48x300"]
     kernels.append({

@@ -19,14 +19,20 @@ SUBPACKAGES = [
     "accvlab_tpu_torch.batched_loss_computation",
     "accvlab_tpu_torch.bench_pipeline",
     "accvlab_tpu_torch.color",
+    "accvlab_tpu_torch.custom_processing_step",
     "accvlab_tpu_torch.heatmap",
     "accvlab_tpu_torch.hostcopy",
     "accvlab_tpu_torch.models",
+    "accvlab_tpu_torch.object_detection_2d_pipeline",
     "accvlab_tpu_torch.pipeline",
     "accvlab_tpu_torch.pipeline.inputs",
+    "accvlab_tpu_torch.pipeline.mini_parser",
     "accvlab_tpu_torch.pipeline.operators",
     "accvlab_tpu_torch.pipeline.processing_steps",
+    "accvlab_tpu_torch.pipeline.structured_output_iterator",
+    "accvlab_tpu_torch.pipeline.worker_pool",
     "accvlab_tpu_torch.ragged",
+    "accvlab_tpu_torch.tools",
     "accvlab_tpu_torch.train_centernet_e2e",
     "accvlab_tpu_torch.train_petr_e2e",
 ]
@@ -133,7 +139,53 @@ def _entry_points():
         "make_head": lambda **kw: make_head(dim=4, **kw),
         "decompress_jpeg_dct": lambda **kw: decompress_jpeg_dct(
             compress_jpeg_dct(_tiny_jpeg(), (8, 16)), (8, 16), **kw),
+        "object_detection_2d_pipeline.build_pipeline": lambda **kw: _tiny_det2d(**kw),
+        "StructuredOutputIterator": lambda **kw: _tiny_iterator(**kw),
     }
+
+
+def _tiny_det2d(**kw):
+    from accvlab_tpu_torch.object_detection_2d_pipeline import build_pipeline
+
+    loader, pipe = build_pipeline(batch_size=1, num_threads=1, **kw)
+    pipe.stop()
+    return loader
+
+
+def _tiny_iterator(**kw):
+    """A StructuredOutputIterator over a default pipeline, one batch."""
+    from accvlab_tpu_torch.pipeline import (
+        DType,
+        PipelineDefinition,
+        SampleDataGroup,
+        StructuredOutputIterator,
+    )
+    from accvlab_tpu_torch.pipeline.inputs import DataProvider, ShuffledShardedInputCallable
+    from accvlab_tpu_torch.pipeline.processing_steps import ImageRange01Normalizer
+
+    class One(DataProvider):
+        @property
+        def sample_data_structure(self):
+            sdg = SampleDataGroup()
+            sdg.add_data_field("image", DType.UINT8)
+            return sdg
+
+        def get_data(self, i):
+            sdg = self.sample_data_structure
+            sdg["image"] = np.zeros((2, 2, 3), np.uint8)
+            return sdg
+
+        def get_number_of_samples(self):
+            return 1
+
+    definition = PipelineDefinition(ShuffledShardedInputCallable(One(), 1),
+                                    [ImageRange01Normalizer("image")])
+    pipe = definition.get_pipeline(batch_size=1, num_threads=1, **kw)
+    try:
+        it = StructuredOutputIterator(1, pipe, definition.check_and_get_output_data_structure())
+        return next(iter(it))
+    finally:
+        pipe.stop()
 
 
 def _tiny_jpeg():
@@ -158,7 +210,9 @@ def _tiny_pipeline(stream=False, **kw):
                                   "start_copy", "get_pipeline", "auction_matching",
                                   "batched_auction_matching", "make_petr_example_batch",
                                   "build_stream_pipeline", "make_data", "make_head",
-                                  "decompress_jpeg_dct"])
+                                  "decompress_jpeg_dct",
+                                  "object_detection_2d_pipeline.build_pipeline",
+                                  "StructuredOutputIterator"])
 def test_entry_points_default_to_cuda(name):
     fn = _entry_points()[name]
     if torch.cuda.is_available():
