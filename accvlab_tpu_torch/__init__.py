@@ -24,7 +24,9 @@ CenterNet training it feeds):
   subsampling;
 * :mod:`.models` — the CenterNet detector, its loss and train step, EMA and
   gradient accumulation, and the loader of the JAX package's flax
-  parameters;
+  parameters; the serving side: checkpoints, weight quantization,
+  ``torch.export`` serving artifacts and the micro-batching
+  ``InferenceServer`` (with :mod:`.detection_serving`);
 * :mod:`.bench_pipeline` and :mod:`.train_centernet_e2e` — bench.py's
   pipeline, its ``measure_input_idle``, and the pipeline-fed train step.
 

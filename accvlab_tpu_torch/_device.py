@@ -7,6 +7,7 @@ selects the CPU. Nothing falls back from the card to the CPU quietly.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Union
 
 import torch
@@ -64,16 +65,35 @@ def device_of(value, device: DeviceLike = None) -> torch.device:
 
 class F32MatmulScope:
     """Float32 matrix products in full precision (TF32 off), as the JAX
-    package's ``Precision.HIGHEST``: the executor's device stage and the DCT
-    wire's decode run under it. The caller's settings are restored
-    afterwards."""
+    package's ``Precision.HIGHEST``: the executor's device stage, the DCT
+    wire's decode and loaded serving programs run under it.
+
+    The settings are process-global, and scopes may be open on several
+    threads at once (a pipeline's consumer thread and a serving thread).
+    The scopes are therefore counted: the first to open saves the caller's
+    settings and sets full precision, the last to close restores them, so
+    no thread's scope is cut short by another's exit. Between the two, a
+    thread outside every scope also computes in full precision.
+    """
+
+    _lock = threading.Lock()
+    _depth = 0
+    _saved = None
 
     def __enter__(self):
-        self._tf32 = torch.backends.cuda.matmul.allow_tf32
-        self._prec = torch.get_float32_matmul_precision()
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.set_float32_matmul_precision("highest")
+        cls = F32MatmulScope
+        with cls._lock:
+            if cls._depth == 0:
+                cls._saved = (torch.backends.cuda.matmul.allow_tf32,
+                              torch.get_float32_matmul_precision())
+                torch.backends.cuda.matmul.allow_tf32 = False
+                torch.set_float32_matmul_precision("highest")
+            cls._depth += 1
 
     def __exit__(self, *exc):
-        torch.backends.cuda.matmul.allow_tf32 = self._tf32
-        torch.set_float32_matmul_precision(self._prec)
+        cls = F32MatmulScope
+        with cls._lock:
+            cls._depth -= 1
+            if cls._depth == 0:
+                torch.backends.cuda.matmul.allow_tf32, prec = cls._saved
+                torch.set_float32_matmul_precision(prec)

@@ -12,6 +12,11 @@ prepares the targets from the raw inputs itself) with the pipeline's own rule
 * class ids are **clamped** into ``[0, C-1]`` (unlike :mod:`.draw`, which
   masks out-of-range ids).
 
+With ``implementation`` ``"auto"`` or ``"kernel"`` the call goes through the
+registered operator ``accvlab_tpu_torch::draw_gaussians`` (:mod:`._ops`: the
+kernel on CUDA tensors, the plain version on CPU tensors), so
+``torch.export`` can trace it; ``"torch"`` runs the plain version inline.
+
 Where the JAX function draws one sample, this one takes any number of
 leading batch dimensions: ``active`` is ``(*batch, T)`` and ``heatmap`` is
 ``(*batch, C, H, W)`` (or ``(*batch, H, W)``). All samples go to the card in
@@ -27,7 +32,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from . import _kernel
+from ._ops import draw_gaussians_op
 from .draw import _as_f32_map, _use_kernel, raster_plain
 
 
@@ -60,7 +65,7 @@ def draw_gaussians(
     """
     hm = _as_f32_map(heatmap, device)
     dev = hm.device
-    kernel = _use_kernel(implementation, dev)
+    _use_kernel(implementation, dev)  # validates; "kernel" on CPU tensors raises
 
     def as_t(x, dtype):
         if not isinstance(x, torch.Tensor):
@@ -82,9 +87,10 @@ def draw_gaussians(
                as_t(radii, torch.float32).reshape(b, t).contiguous())
     if t == 0:
         out = hm4
-    elif kernel:
-        out = _kernel.launch_gaussians("draw_gaussians", hm4, *targets, k_for_classes,
-                                       radius_to_sigma_factor, exact)
+    elif implementation != "torch":
+        out = draw_gaussians_op(hm4.contiguous(), *targets,
+                                [float(k) for k in np.asarray(k_for_classes).reshape(-1)],
+                                float(radius_to_sigma_factor), bool(exact))
     else:
         params = gaussian_params(*targets, k_for_classes, radius_to_sigma_factor, c)
         out = raster_plain(hm4, *params, 1.0, exact, False)

@@ -1,59 +1,54 @@
-"""Models that drive the port end to end: PyTorch port of the CenterNet and
-PETR parts of ``accvlab_tpu.models`` (detectors, ragged losses, train steps,
-decodes), ``eval`` (batched matching and the streaming mAP evaluator) and
-``train_utils``, plus ``params`` (flax parameters into the port's modules).
-MoE, checkpoint, quantize, serving and the server are not ported yet.
+"""Models that drive the port end to end: PyTorch port of
+``accvlab_tpu.models`` — the CenterNet and PETR detectors, ragged losses,
+train steps and decodes, ``eval`` (batched matching and the streaming mAP
+evaluator), ``train_utils``, ``params`` (flax parameters into the port's
+modules), and the serving side: ``checkpoint``, ``quantize``, ``serving``
+(``torch.export`` artifacts) and ``server`` (the micro-batching
+``InferenceServer``). MoE is not ported yet.
+
+Submodules resolve lazily (PEP 562), as in the JAX package: a serving host
+that imports ``models.serving`` or ``models.checkpoint`` imports neither the
+detectors nor the pipeline.
 """
 
-from .centernet import (
-    CenterNetDetector,
-    centernet_loss,
-    decode_detections,
-    focal_loss,
-    make_example_batch,
-    make_train_step,
-)
-from .eval import DetectionEvaluator, box_iou_matrix, match_detections, match_detections_3d
-from .params import jax_params_of, load_jax_params
-from .petr import (
-    PETRDetector,
-    compensate_ref_points,
-    decode_detections_3d,
-    make_motion_petr_train_step,
-    make_petr_example_batch,
-    make_petr_train_step,
-    make_streaming_petr_train_step,
-    petr_loss,
-    propagate_queries,
-    propagate_queries_with_motion,
-)
-from .train_utils import ema_init, ema_params, ema_update, make_grad_accum_step
+import importlib
 
-__all__ = [
-    "CenterNetDetector",
-    "DetectionEvaluator",
+_CENTERNET = ("CenterNetDetector", "centernet_loss", "decode_detections", "focal_loss",
+              "make_example_batch", "make_train_step")
+_PETR = (
     "PETRDetector",
-    "box_iou_matrix",
-    "centernet_loss",
     "compensate_ref_points",
-    "decode_detections",
     "decode_detections_3d",
-    "ema_init",
-    "ema_params",
-    "ema_update",
-    "focal_loss",
-    "jax_params_of",
-    "load_jax_params",
-    "make_example_batch",
-    "make_grad_accum_step",
     "make_motion_petr_train_step",
     "make_petr_example_batch",
     "make_petr_train_step",
     "make_streaming_petr_train_step",
-    "make_train_step",
-    "match_detections",
-    "match_detections_3d",
     "petr_loss",
     "propagate_queries",
     "propagate_queries_with_motion",
-]
+)
+_TRAIN_UTILS = ("ema_init", "ema_params", "ema_update", "make_grad_accum_step")
+_EVAL = ("DetectionEvaluator", "box_iou_matrix", "match_detections", "match_detections_3d")
+_PARAMS = ("jax_params_of", "load_jax_params")
+_SERVER = ("InferenceServer", "ServerClosed")
+
+_EXPORTS = {name: module for module, names in (
+    ("centernet", _CENTERNET), ("petr", _PETR), ("train_utils", _TRAIN_UTILS),
+    ("eval", _EVAL), ("params", _PARAMS), ("server", _SERVER)) for name in names}
+
+_SUBMODULES = ("centernet", "checkpoint", "eval", "params", "petr", "quantize", "server",
+               "serving", "train_utils")
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        return getattr(importlib.import_module(f".{_EXPORTS[name]}", __name__), name)
+    if name in _SUBMODULES:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(__all__ + list(_SUBMODULES))

@@ -16,6 +16,7 @@ from .random_context import (
     DeviceRandomContext,
     HostRandomContext,
     RandomContext,
+    ReplayRandomContext,
     ScriptedRandomContext,
 )
 from .structured_output_iterator import (
@@ -30,6 +31,7 @@ __all__ = [
     "HostRandomContext",
     "PipelineDefinition",
     "RandomContext",
+    "ReplayRandomContext",
     "SampleDataGroup",
     "ScriptedRandomContext",
     "StructuredOutputIterator",

@@ -30,8 +30,13 @@ Host work runs on threads or, with ``worker_mode="process"``, in spawned
 worker processes (:mod:`.worker_pool`). ``start_trace``/``stop_trace``
 record the executor's phase timeline (:mod:`..tools.chrome_trace`).
 
-Not ported yet (ROADMAP.md): mesh sharding, ``device_program_text`` and
-``export_device_program``.
+The device stage can also be exported (``torch.export``) as a function of
+the transferred leaves and the batch's random draws: ``device_program_text``
+prints that program, ``export_device_program`` writes it as a serving
+artifact (:mod:`..models.serving`) that reproduces the stage without
+pipeline code.
+
+Not ported yet (ROADMAP.md): mesh sharding.
 """
 
 from __future__ import annotations
@@ -45,12 +50,13 @@ from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from .._device import F32MatmulScope, resolve_device
 from .dtypes import DType
 from .inputs.base import CallableBase, IterableBase, SampleInfo
 from .processing_steps.pipeline_step_base import BatchLevelStepBase, PipelineStepBase
-from .random_context import DeviceRandomContext, HostRandomContext
+from .random_context import DeviceRandomContext, HostRandomContext, ReplayRandomContext
 from .sample_data_group import SampleDataGroup
 
 # fields up to this size ride the packed transfer (one field of bench.py's
@@ -77,6 +83,65 @@ def _split_steps(steps: Sequence[PipelineStepBase]):
                 "host/device boundary (a device-placed step precedes it)."
             )
     return host_steps, device_steps
+
+
+class _StepModule(nn.Module):
+    """One device step inside the exported stage. It is registered under the
+    step's class name, so every node it makes carries that name in its
+    ``nn_module_stack``."""
+
+    def __init__(self, step: PipelineStepBase, check: bool):
+        super().__init__()
+        self.__dict__["step"] = step
+        self._check = check
+
+    def forward(self, sdg):
+        return self.step(sdg) if self._check else self.step._process(sdg)
+
+
+class _DeviceStage(nn.Module):
+    """The device steps as a function of ``(leaves, draws)``: the draws that
+    ``schedule`` records are handed out by a :class:`ReplayRandomContext`
+    (``torch.export`` cannot trace a ``torch.Generator``)."""
+
+    def __init__(self, blueprint: SampleDataGroup, steps, schedule, check: bool):
+        super().__init__()
+        self.__dict__["blueprint"] = blueprint
+        self._schedule = list(schedule)
+        for i, step in enumerate(steps):
+            self.add_module(f"{type(step).__name__}_{i}", _StepModule(step, check))
+
+    def forward(self, leaves, draws):
+        sdg = self.blueprint.get_empty_like_self()
+        sdg.set_data(list(leaves))
+        ctx = ReplayRandomContext(draws, self._schedule)
+        with F32MatmulScope():
+            for module in self.children():
+                module.step.set_random_context(ctx)
+                sdg = module(sdg)
+        ctx.finish()
+        return tuple(sdg.get_data())
+
+
+def _step_of(node) -> str:
+    """The device step a node of the exported stage belongs to."""
+    stack = node.meta.get("nn_module_stack") or {}
+    names = [path.split(".")[-1] for path, _ in stack.values()]
+    return next((n for n in reversed(names) if n), "")
+
+
+def program_text(ep) -> str:
+    """One line per node of an exported program: its name, dtype and shape,
+    the call, and the device step that made it."""
+    lines = []
+    for node in ep.graph.nodes:
+        val = node.meta.get("val")
+        spec = ""
+        if isinstance(val, torch.Tensor):
+            spec = f" : {str(val.dtype).replace('torch.', '')}{list(val.shape)}"
+        step = _step_of(node)
+        lines.append(f"{node.format_node()}{spec}" + (f"  # {step}" if step else ""))
+    return "\n".join(lines)
 
 
 class PipelineDefinition:
@@ -287,6 +352,11 @@ class TorchPipeline:
         # phase-timeline recorder (start_trace); when None the hot paths pay
         # one attribute read per phase
         self._trace = None
+        # the last device-stage call's leaf specs and draw schedule (what
+        # device_program_text/export_device_program trace), and the texts
+        self._last_device_spec = None
+        self._program_cache: dict = {}  # the last spec's ExportedProgram
+        self._program_text_cache: dict = {}
 
     @property
     def device(self) -> torch.device:
@@ -465,7 +535,98 @@ class TorchPipeline:
             for step in self._device_steps:
                 step.set_random_context(ctx)
                 sdg = step(sdg) if self._check else step._process(sdg)
+        self._last_device_spec = (tuple((tuple(x.shape), x.dtype) for x in leaves),
+                                  tuple(ctx.schedule))
         return tuple(sdg.get_data())
+
+    # ------------------------------------------------------------------ #
+    # Device program: text and serving export                            #
+    # ------------------------------------------------------------------ #
+
+    def _device_spec(self):
+        """The last device-stage call's ``(leaf specs, draw schedule)``;
+        raises when there is nothing to export."""
+        if not self._device_steps:
+            raise RuntimeError(
+                "this pipeline has no device-placed steps (no device program exists)"
+            )
+        if self._last_device_spec is None:
+            raise RuntimeError(
+                "no device program built yet — deliver at least one batch (pipe.run()) first"
+            )
+        return self._last_device_spec
+
+    def _export_device_stage(self):
+        """``torch.export`` of the device steps at the last batch's leaf
+        specs and draw schedule: ``(ExportedProgram, schedule)``, traced once
+        per spec."""
+        specs, schedule = self._device_spec()
+        key = (specs, repr(schedule))
+        if self._program_cache.get("key") == key:
+            return self._program_cache["program"], schedule
+        stage = _DeviceStage(self._host_out_blueprint, self._device_steps, schedule, self._check)
+        # uint32 leaves (the DCT wire's packed exceptions) enter as their
+        # int32 bits: torch.export's serializer (torch 2.11) has no uint32
+        leaves = tuple(torch.zeros(shape, dtype=torch.int32 if dtype == torch.uint32 else dtype,
+                                   device=self._device)
+                       for shape, dtype in specs)
+        draws = tuple(torch.zeros(e["shape"], device=self._device,
+                                  dtype=torch.int32 if e["kind"] == "randint" else torch.float32)
+                      for e in schedule)
+        with torch.no_grad():
+            ep = torch.export.export(stage, (leaves, draws), strict=False)
+        self._program_cache = {"key": key, "program": ep}
+        return ep, schedule
+
+    def device_program_text(self, optimized: bool = False) -> str:
+        """Text of the exported device stage at the most recent batch's
+        shapes: one line per node with its dtype and shape, the call, and the
+        device step (its class name) that made it. ``optimized=True`` prints
+        the program after ``run_decompositions()`` (the core ATen ops it
+        lowers to). Cached per batch spec.
+
+        Raises ``RuntimeError`` before the first delivered batch and when the
+        pipeline has no device-placed steps."""
+        specs, schedule = self._device_spec()
+        key = (specs, repr(schedule), bool(optimized))
+        text = self._program_text_cache.get(key)
+        if text is None:
+            ep, _ = self._export_device_stage()
+            text = program_text(ep.run_decompositions() if optimized else ep)
+            self._program_text_cache[key] = text
+        return text
+
+    def export_device_program(self, path: Optional[str] = None):
+        """Export the device stage as a self-contained serving artifact (the
+        :mod:`..models.serving` container), at the most recent batch's
+        shapes.
+
+        The artifact takes ``(leaves, key)``: the flat host-stage output
+        leaves (header ``pipeline_input_fields`` names them in order; a
+        uint32 leaf is taken as its int32 bits, which the steps that read
+        uint32 fields, the DCT wire's unpacker, view so themselves) and
+        the batch key, ``(seed, batch_idx)`` (``(seed, batch_idx, echo)``
+        with echoing); the header's ``draw_schedule`` lets the loader make
+        the stage's random draws from it. It returns the flat output leaves
+        (``pipeline_output_fields``), bit for bit those of
+        :meth:`run_device_stage` on the same leaves. Raises as
+        :meth:`device_program_text`.
+
+        Returns the header; the bytes go to ``path`` (atomic write) when it
+        is given, else they are returned instead of the header.
+        """
+        from ..models import serving as _serving
+
+        ep, schedule = self._export_device_stage()
+        header = _serving._header(ep, False, "device_stage", "highest")
+        header["draw_schedule"] = list(schedule)
+        header["pipeline_input_fields"] = list(self._host_out_blueprint.field_names_flat)
+        header["pipeline_output_fields"] = list(self._output_blueprint.field_names_flat)
+        data = _serving._pack(header, _serving.program_bytes(ep))
+        if path is None:
+            return data
+        _serving._atomic_write(path, data)
+        return header
 
     # ------------------------------------------------------------------ #
     # Prefetching iterator protocol                                      #

@@ -12,6 +12,8 @@ an explicit :class:`RandomContext`:
   may be tensors on the device (one range per sample); the draw is then
   scaled there. It cannot reproduce the JAX package's threefry bits; parity
   tests script both sides.
+* :class:`ReplayRandomContext` — hands out the draws of a recorded
+  schedule, given as tensors (the traceable form for the serving export),
 * :class:`ScriptedRandomContext` — returns scripted sequences matched by
   value range; the test-injection pattern of the reference's
   ``DaliFakeRandomGenerator``.
@@ -24,10 +26,12 @@ scalar per sample under ``vmap``.
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .. import _draws
 
 
 class RandomContext(ABC):
@@ -73,16 +77,17 @@ class DeviceRandomContext(RandomContext):
     """``torch.Generator``-backed context for device steps.
 
     The generator is seeded from ``key`` (a tuple of ints such as
-    ``(seed, batch_idx)``, folded through numpy's ``SeedSequence``); draws
-    are made on the CPU in the order the steps request them and returned as
-    tensors on ``device``.
+    ``(seed, batch_idx)``, folded through numpy's ``SeedSequence``,
+    :func:`accvlab_tpu_torch._draws.generator`); draws are made on the CPU in
+    the order the steps request them and returned as tensors on ``device``.
+    :attr:`schedule` records each draw's kind, shape and static bounds, in
+    order (what :class:`ReplayRandomContext` replays).
     """
 
     def __init__(self, key, device="cpu"):
-        state = np.random.SeedSequence([int(k) for k in key]).generate_state(2, np.uint32)
-        self._gen = torch.Generator(device="cpu")
-        self._gen.manual_seed((int(state[0]) << 31) ^ int(state[1]))
+        self._gen = _draws.generator(key)
         self._device = torch.device(device)
+        self.schedule: List[dict] = []
 
     def _out(self, x):
         if self._device.type == "cuda":
@@ -90,20 +95,74 @@ class DeviceRandomContext(RandomContext):
             return x.pin_memory().to(self._device, non_blocking=True)
         return x.to(self._device)
 
+    def _draw(self, kind, a, b, shape):
+        e = _draws.entry(kind, shape, a, b)
+        self.schedule.append(e)
+        return self._out(_draws.draw(self._gen, e))
+
     def uniform(self, low=0.0, high=1.0, shape=()):
-        u = torch.rand(tuple(shape), generator=self._gen, dtype=torch.float32)
+        u = self._draw("uniform", low, high, shape)
         if isinstance(low, torch.Tensor) or isinstance(high, torch.Tensor):
-            return self._out(u) * (high - low) + low  # per-sample ranges, on the device
-        return self._out(u * (float(high) - float(low)) + float(low))
+            return u * (high - low) + low  # per-sample ranges, on the device
+        return u
 
     def normal(self, mean=0.0, stddev=1.0, shape=()):
-        n = torch.randn(tuple(shape), generator=self._gen, dtype=torch.float32)
-        return self._out(n * float(stddev) + float(mean))
+        return self._draw("normal", mean, stddev, shape)
 
     def randint(self, low, high, shape=()):
-        r = torch.randint(int(low), int(high), tuple(shape), generator=self._gen,
-                          dtype=torch.int32)
-        return self._out(r)
+        return self._draw("randint", low, high, shape)
+
+
+class ReplayRandomContext(RandomContext):
+    """Hands out given draws in the order of a recorded schedule: the device
+    stage as a function of ``(leaves, draws)``, which ``torch.export`` can
+    trace (a ``torch.Generator`` cannot be traced).
+
+    ``draws[i]`` is what :class:`DeviceRandomContext` copied to the device
+    for ``schedule[i]`` (:func:`accvlab_tpu_torch._draws.make_draws` makes
+    them from the key). A request whose kind, shape or bounds differ from
+    the schedule's next entry raises, as does one past its end;
+    :meth:`finish` raises when draws are left over.
+    """
+
+    def __init__(self, draws: Sequence[torch.Tensor], schedule: Sequence[dict]):
+        if len(draws) != len(schedule):
+            raise ValueError(f"{len(draws)} draws for a schedule of {len(schedule)}")
+        self._draws = list(draws)
+        self._schedule = list(schedule)
+        self._i = 0
+
+    def _next(self, kind, a, b, shape) -> torch.Tensor:
+        if self._i >= len(self._schedule):
+            raise RuntimeError(
+                f"the device stage asked for draw {self._i + 1} ({kind} {tuple(shape)}), but "
+                f"the recorded schedule has {len(self._schedule)}"
+            )
+        want = self._schedule[self._i]
+        got = _draws.entry(kind, shape, a, b)
+        if got != want:
+            raise RuntimeError(f"draw {self._i}: the device stage asked for {got}, the "
+                               f"recorded schedule has {want}")
+        self._i += 1
+        return self._draws[self._i - 1]
+
+    def finish(self) -> None:
+        """Raise unless every draw was handed out."""
+        if self._i != len(self._schedule):
+            raise RuntimeError(f"the device stage took {self._i} of the schedule's "
+                               f"{len(self._schedule)} draws")
+
+    def uniform(self, low=0.0, high=1.0, shape=()):
+        u = self._next("uniform", low, high, shape)
+        if isinstance(low, torch.Tensor) or isinstance(high, torch.Tensor):
+            return u * (high - low) + low
+        return u
+
+    def normal(self, mean=0.0, stddev=1.0, shape=()):
+        return self._next("normal", mean, stddev, shape)
+
+    def randint(self, low, high, shape=()):
+        return self._next("randint", low, high, shape)
 
 
 class ScriptedRandomContext(RandomContext):

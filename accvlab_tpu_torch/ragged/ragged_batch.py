@@ -15,7 +15,10 @@ does not see the change.
 
 Differences from the JAX package:
 
-* no pytree registration (nothing traces it);
+* registered as a ``torch.utils._pytree`` node (``serialized_type_name``
+  ``accvlab_tpu_torch.ragged.RaggedBatch``) with the JAX package's children
+  ``(tensor, mask, sample_sizes)``, both derived ones materialized, so ``torch.export`` programs return
+  RaggedBatches and the serving runtime splits them leaf by leaf;
 * ``mask`` and ``sample_sizes`` are moved to the tensor's device, and
   ``sample_sizes`` is cast to int32 (numpy inputs become CPU tensors);
 * ``long()`` and ``double()`` give int64 and float64, PyTorch's own widths.
@@ -672,3 +675,41 @@ class RaggedBatch:
             f"RaggedBatch(tensor={self._tensor}, {mask_str}, {sizes_str}, "
             f"non_uniform_dim={self._non_uniform_dim}, batch_shape={self._batch_shape})"
         )
+
+
+# ---------------------------------------------------------------------- #
+# Pytree registration                                                    #
+# ---------------------------------------------------------------------- #
+
+SERIALIZED_TYPE_NAME = "accvlab_tpu_torch.ragged.RaggedBatch"
+
+
+def _rb_flatten(rb: RaggedBatch):
+    # mask and sample_sizes are materialized: every leaf is a tensor (a lazy
+    # one would flatten to a None leaf, which a batch split cannot slice)
+    return [rb.tensor, rb.mask, rb.sample_sizes], (rb._non_uniform_dim, rb._num_batch_dims)
+
+
+def _rb_unflatten(children, aux) -> RaggedBatch:
+    tensor, mask, sample_sizes = children
+    non_uniform_dim, num_batch_dims = aux
+    obj = object.__new__(RaggedBatch)
+    obj._tensor = tensor
+    obj._mask = mask
+    obj._sample_sizes = sample_sizes
+    obj._non_uniform_dim = non_uniform_dim
+    obj._num_batch_dims = num_batch_dims
+    shape = getattr(tensor, "shape", None)
+    obj._batch_shape = tuple(shape[:num_batch_dims]) if shape is not None else ()
+    obj._total_num_targets = None
+    return obj
+
+
+torch.utils._pytree.register_pytree_node(
+    RaggedBatch,
+    _rb_flatten,
+    _rb_unflatten,
+    serialized_type_name=SERIALIZED_TYPE_NAME,
+    to_dumpable_context=list,
+    from_dumpable_context=tuple,
+)

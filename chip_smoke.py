@@ -145,12 +145,39 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              CUDA events (median of MATCHED_STEPS); the device form under
              the sync check (the host form synchronises: it reads the cost
              back); the device form's matches equal to the plain auction's;
-15. the {"kernels": [...]} line, the nvidia-smi line, and last the result
+15. serving — CenterNetDetector(10, width=64) with seeded weights at 256x704:
+             two asynchronous checkpoints (keep=2), the latest restored
+             bitwise; batch-polymorphic torch.export artifacts of the forward
+             + decode_detections with float, int8 and int4 (group 64)
+             weights: file bytes, params_nbytes, the float artifact's heads
+             within TRAIN_TOL of the live module (and whether bitwise), each
+             quantized artifact within TRAIN_TOL of its in-process
+             dequantized model, int8 within QUANT_TOL of the float module
+             (int4's drift reported: INT4_NOTE); ms per batch of the artifact
+             per bucket (1, 2, 4, 8; CUDA events, median of SERVE_ITERS),
+             images/s and the 8-over-1 amortization, one call under the sync
+             check; the InferenceServer (4 clients x 25 requests, depth 2,
+             3 ms window): requests/s, client p50/p95, the bucket histogram,
+             every request bitwise a direct call of the artifact on its
+             stacked batch, and within TRAIN_TOL of a batch-1 call;
+16. export  — bench.py's pipeline on the DCT wire at full width delivers 2
+             batches; the last host batch's device stage is exported
+             (build/preprocess.accvserve), reloaded and run on that batch's
+             leaves with its key: every output leaf bitwise
+             run_device_stage's, the rasterizer launched once per call
+             through the registered operator; the artifact's and the eager
+             stage's device ms (stream held, EXPORT_TIMED reps) and launches
+             (profiler); the chained path on the two files alone
+             (preprocessed 48 images -> the serving artifact) bitwise the
+             in-process composition; device_program_text() naming every
+             device step;
+17. the {"kernels": [...]} line, the nvidia-smi line, and last the result
    line {"ok": true, "device": {...}}.
 
 The pipeline phases (main, main_yuv, main_frames, echo, det2d, workers, train, input_idle,
-petr) each count the rasterizer's launches from 0 and fail unless it ran once per delivered
-pipeline batch; the kernels line's draw_gaussians launches are main's and det2d's. The encoded JPEGs are kept in build/bench_cache (bench.py's
+petr, export) each count the rasterizer's launches from 0 and fail unless it ran once per
+delivered pipeline batch; the kernels line's draw_gaussians launches are main's, det2d's and
+export's. The encoded JPEGs are kept in build/bench_cache (bench.py's
 cache format) for the phases after the first.
 
 Exits non-zero without a result when torch.cuda.is_available() is false.
@@ -2215,6 +2242,335 @@ def matched_loss_phase(dev, card: str):
     return launches
 
 
+# serving: the buckets and timing of bench_serving.py, and its server load
+SERVE_BUCKETS = (1, 2, 4, 8)
+SERVE_ITERS = 20
+SERVE_CLIENTS, SERVE_PER_CLIENT = 4, 25
+SERVE_MAX_DELAY_MS, SERVE_DEPTH = 3.0, 2
+# the int8 artifact against the float module: tests/test_quantize.py:71-85
+QUANT_TOL = {"max_abs_over_max": 0.12, "corrcoef": 0.99}
+# int4 (group 64) is held to its own in-process model and its drift from the
+# float module reported: the JAX package's int4 drifts beyond QUANT_TOL at
+# this width too (scripts/torch_quantize_drift.py, CPU, both packages)
+INT4_NOTE = "reported, not held to QUANT_TOL: scripts/torch_quantize_drift.py"
+# the exported and the eager device stage: about 300 ms of the card's clock
+# holds the stream while the host enqueues either (36-130 ms on an H100 host:
+# with the stream held no pinned block of the draws is free for reuse)
+EXPORT_SLEEP_CYCLES = 600_000_000
+EXPORT_TIMED = 10
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+SERVING_ARTIFACT = os.path.join(BUILD_DIR, "serving_float.accvserve")
+PREPROCESS_ARTIFACT = os.path.join(BUILD_DIR, "preprocess.accvserve")
+
+
+def trees_equal(a, b) -> bool:
+    import torch.utils._pytree as pytree
+
+    la, sa = pytree.tree_flatten(a)
+    lb, sb = pytree.tree_flatten(b)
+    return sa == sb and all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def heads_rel(got: dict, want: dict) -> float:
+    return max(rel_to_max(got[k].float(), want[k].float()) for k in ("heatmap", "offset", "size"))
+
+
+def event_ms(fn, reps: int) -> list:
+    """Device ms of ``fn()`` per call (CUDA events), ``reps`` calls after one
+    warm-up call."""
+    fn()
+    out = []
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        out.append(e0.elapsed_time(e1))
+    return out
+
+
+def serving_phase(dev, card: str):
+    """The serving path at full width: checkpoints, the float/int8/int4
+    artifacts, the artifact per bucket, and the InferenceServer."""
+    import shutil
+    import threading
+
+    from accvlab_tpu_torch.detection_serving import detection_fn, seeded_detector
+    from accvlab_tpu_torch.models import InferenceServer
+    from accvlab_tpu_torch.models.checkpoint import (
+        latest_checkpoint,
+        restore_checkpoint,
+        save_checkpoint,
+        wait_for_checkpoints,
+    )
+    from accvlab_tpu_torch.models.quantize import params_nbytes, quantize_params
+    from accvlab_tpu_torch.models.serving import _atomic_write, export_inference, load_inference
+
+    t_phase = time.perf_counter()
+    out_hw = WIDTH["out_hw"]
+    model = seeded_detector(10, 64, seed=0, device=dev)
+    rng = np.random.default_rng(3)
+    images = torch.from_numpy(rng.uniform(0, 1, (8, *out_hw, 3)).astype(np.float32)).to(dev)
+
+    # 1. checkpoints: two asynchronous saves with keep=2, then a restore
+    ckpt_dir = os.path.join(BUILD_DIR, "serving_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    state = model.state_dict()
+    save_ms = []
+    for step in (1, 2):
+        t0 = time.perf_counter()
+        save_checkpoint(ckpt_dir, step, state, None, {"step": step}, asynchronous=True, keep=2)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    wait_for_checkpoints()
+    wait_ms = (time.perf_counter() - t0) * 1e3
+    path = latest_checkpoint(ckpt_dir)
+    restored, _, meta = restore_checkpoint(path, {"params": state, "opt_state": None})
+    if not path.endswith("step_00000002") or meta["step"] != 2:
+        fail(f"serving: latest checkpoint {path} (meta {meta}), not step 2")
+    if not all(v.device == state[k].device and torch.equal(v, state[k])
+               for k, v in restored.items()):
+        fail("serving: the restored parameters are not bitwise the saved ones")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # 2. the batch-polymorphic artifacts against the live module at batch 8
+    with torch.no_grad():
+        live = model(images)
+    artifacts = {}
+    for name, q in (("float", None), ("int8", quantize_params(model)),
+                    ("int4", quantize_params(model, bits=4, group_size=64))):
+        t0 = time.perf_counter()
+        data = export_inference(detection_fn(model, quantized=q), (images[:2],),
+                                batch_polymorphic=True)
+        export_s = time.perf_counter() - t0
+        path = SERVING_ARTIFACT if name == "float" else SERVING_ARTIFACT.replace("float", name)
+        _atomic_write(path, data)
+        serve = load_inference(path)
+        got = serve(images)
+        torch.cuda.synchronize()
+        rel = heads_rel(got, live)
+        rec = {"file_bytes": os.path.getsize(path),
+               "params_nbytes": params_nbytes(model if q is None else q),
+               "export_s": export_s, "heads_rel_to_max": rel,
+               "heads_bitwise": all(torch.equal(got[k], live[k])
+                                    for k in ("heatmap", "offset", "size"))}
+        if q is None:
+            if rel > TRAIN_TOL["heads"]:
+                fail(f"serving: the float artifact's heads are {rel} of their max from the "
+                     "module's")
+            float_serve = serve
+        else:
+            # the artifact computes what its quantized weights say: against the
+            # same dequantization in process
+            with torch.no_grad():
+                inproc = detection_fn(model, quantized=q)(images)
+            rec["heads_rel_to_max_vs_in_process"] = heads_rel(got, inproc)
+            if rec["heads_rel_to_max_vs_in_process"] > TRAIN_TOL["heads"]:
+                fail(f"serving: the {name} artifact is {rec} from its in-process model")
+            g, w = got["heatmap"].double().cpu().numpy(), live["heatmap"].double().cpu().numpy()
+            rec["heatmap_max_abs_over_max"] = float(np.abs(g - w).max() / np.abs(w).max())
+            rec["heatmap_corrcoef"] = float(np.corrcoef(g.ravel(), w.ravel())[0, 1])
+            rec["within_quant_tol"] = bool(
+                rec["heatmap_max_abs_over_max"] <= QUANT_TOL["max_abs_over_max"]
+                and rec["heatmap_corrcoef"] > QUANT_TOL["corrcoef"])
+            # the JAX test holds int8 to these bounds; int4 is reported (the JAX
+            # package's own int4 misses them at this width: INT4_NOTE)
+            if name == "int8" and not rec["within_quant_tol"]:
+                fail(f"serving: the {name} artifact is {rec} from the float module")
+            if name == "int4":
+                rec["note"] = INT4_NOTE
+        artifacts[name] = rec
+
+    # 3. the artifact with decode_detections per bucket
+    per_bucket = {}
+    with torch.no_grad():
+        for b in SERVE_BUCKETS:
+            x = images[:b]
+            ms = event_ms(lambda: float_serve(x), SERVE_ITERS)
+            med = float(np.median(ms))
+            per_bucket[b] = {"ms_per_batch": med, "ms_min_max": [min(ms), max(ms)],
+                             "img_per_s": b / med * 1e3}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            float_serve(images)
+        except RuntimeError as e:
+            fail(f"serving: the artifact's call synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    amortization = per_bucket[8]["img_per_s"] / per_bucket[1]["img_per_s"]
+
+    # 4. the InferenceServer: every request's detections bitwise a direct
+    # call of the artifact at its bucket on the same stacked batch
+    n = SERVE_CLIENTS * SERVE_PER_CLIENT
+    requests = torch.from_numpy(rng.uniform(0, 1, (n, *out_hw, 3)).astype(np.float32))
+    requests[:, 0, 0, 0] = torch.arange(n, dtype=torch.float32)  # each request's tag
+    batches = []
+
+    def recorded(x):
+        out = float_serve(x)
+        batches.append((x, out))
+        return out
+
+    server = InferenceServer(recorded, batch_sizes=SERVE_BUCKETS, max_delay_ms=SERVE_MAX_DELAY_MS,
+                             pipeline_depth=SERVE_DEPTH, device=dev)
+    server.warmup(requests[0])
+    batches.clear()
+    results, lat = [None] * n, []
+
+    def client(cid):
+        for i in range(SERVE_PER_CLIENT):
+            r = cid * SERVE_PER_CLIENT + i
+            t = time.perf_counter()
+            results[r] = server.infer(requests[r], timeout=120)
+            lat.append((time.perf_counter() - t) * 1e3)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    st = server.stats()
+    server.close()
+    if st["requests"] != n or st["errors"]:
+        fail(f"serving: the server answered {st['requests']} of {n} requests, "
+             f"{st['errors']} errors")
+    where = {}
+    with torch.no_grad():
+        for x, out in batches:
+            direct = float_serve(x)
+            if not trees_equal(out, direct):
+                fail(f"serving: a served batch of {x.shape[0]} differs from a direct call")
+            for j in range(x.shape[0]):
+                where.setdefault(int(x[j, 0, 0, 0]), (direct, j))
+        worst_b1, b1_bitwise = 0.0, True
+        for r in range(n):
+            direct, j = where[r]
+            want = {k: v[j: j + 1] for k, v in direct.items() if k != "detections"}
+            got = results[r]
+            dets_ok = all(torch.equal(got["detections"][k].tensor,
+                                      direct["detections"][k].tensor[j: j + 1])
+                          and torch.equal(got["detections"][k].sample_sizes,
+                                          direct["detections"][k].sample_sizes[j: j + 1])
+                          for k in ("boxes", "scores", "classes"))
+            if not dets_ok or not all(torch.equal(got[k], want[k]) for k in want):
+                fail(f"serving: request {r} differs from its bucket's direct call")
+            one = float_serve(requests[r: r + 1].to(dev))
+            worst_b1 = max(worst_b1, heads_rel(got, one))
+            b1_bitwise = b1_bitwise and all(torch.equal(got[k], one[k]) for k in want)
+    if worst_b1 > TRAIN_TOL["heads"]:
+        fail(f"serving: a served request's heads are {worst_b1} of their max from batch 1")
+    emit({"phase": "serving", "card": card,
+          "config": "CenterNetDetector(10, width=64) + decode_detections(max 100, threshold "
+                    "0.1) at 256x704, seeded weights; batch-polymorphic torch.export artifacts",
+          "checkpoint": {"async_save_return_ms": save_ms, "wait_ms": wait_ms,
+                         "restore_bitwise": True, "kept": 2},
+          "artifacts": artifacts, "per_bucket": per_bucket,
+          "amortization_8_over_1": amortization, "sync_free_call": True,
+          "server": {"requests": n, "wall_s": wall, "requests_per_s": n / wall,
+                     "client_p50_ms": float(np.percentile(lat, 50)),
+                     "client_p95_ms": float(np.percentile(lat, 95)),
+                     "bucket_histogram": {str(k): v for k, v in st["batch_size_counts"].items()},
+                     "padded_samples": st["padded_samples"], "batches": st["batches"],
+                     "queue_wait_p95_ms": st["queue_wait"].get("p95_ms"),
+                     "pipeline_depth": SERVE_DEPTH, "max_delay_ms": SERVE_MAX_DELAY_MS,
+                     "bitwise_vs_bucket_call": True,
+                     "heads_rel_to_max_vs_batch1": worst_b1,
+                     "bitwise_vs_batch1": b1_bitwise},
+          "phase_s": time.perf_counter() - t_phase})
+
+
+def export_phase(dev, card: str) -> int:
+    """bench.py's device stage on the DCT wire exported, reloaded and run on
+    the last host batch; the chained artifacts. Returns the rasterizer's
+    launches of the pipeline's batches and the artifact's call."""
+    from accvlab_tpu_torch.bench_pipeline import build_pipeline, model_inputs
+    from accvlab_tpu_torch.detection_serving import detection_fn, seeded_detector
+    from accvlab_tpu_torch.heatmap import LAUNCHES, reset_launch_counts
+    from accvlab_tpu_torch.models.serving import load_inference
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    pipe = build_pipeline(batch_size=8, device=dev, cache_dir=CACHE_DIR)
+    try:
+        pipe.run()
+        pipe.run()
+        pipe._halt_producer()
+        idx, _, _, host = pipe._produce_host_batch()  # the last host batch
+        leaves = pipe._transfer(host)
+        want = pipe.run_device_stage(leaves, idx)
+        key = (0, idx)
+        torch.cuda.synchronize()
+        if LAUNCHES["draw_gaussians"] != 3:
+            fail(f"export: draw_gaussians launched {LAUNCHES['draw_gaussians']} times for 2 "
+                 "batches and one device stage")
+        t0 = time.perf_counter()
+        header = pipe.export_device_program(PREPROCESS_ARTIFACT)
+        export_s = time.perf_counter() - t0
+        serve = load_inference(PREPROCESS_ARTIFACT)
+        torch.cuda.synchronize()
+        before = LAUNCHES["draw_gaussians"]
+        got = serve(leaves, key)
+        torch.cuda.synchronize()
+        if LAUNCHES["draw_gaussians"] != before + 1:
+            fail(f"export: the artifact's call launched the rasterizer "
+                 f"{LAUNCHES['draw_gaussians'] - before} times, not once")
+        launches = LAUNCHES["draw_gaussians"]
+        names = header["pipeline_output_fields"]
+        bad = [n for n, g, w in zip(names, got, want) if not torch.equal(g, w)]
+        if len(got) != len(want) or bad:
+            fail(f"export: the artifact's outputs {bad} differ from run_device_stage")
+
+        artifact = decode_readings(lambda: serve(leaves, key), EXPORT_TIMED,
+                                   EXPORT_SLEEP_CYCLES)
+        eager = decode_readings(lambda: pipe.run_device_stage(leaves, idx), EXPORT_TIMED,
+                                EXPORT_SLEEP_CYCLES)
+
+        # the chained path on the two files alone against the in-process one
+        model_serve = load_inference(SERVING_ARTIFACT)
+        images, _ = model_inputs(dict(zip(names, serve(leaves, key))), 6)
+        chained = model_serve(images)
+        model = seeded_detector(10, 64, seed=0, device=dev)
+        with torch.no_grad():
+            composed = detection_fn(model)(model_inputs(dict(zip(names, want)), 6)[0])
+        torch.cuda.synchronize()
+        if tuple(images.shape) != (48, *WIDTH["out_hw"], 3):
+            fail(f"export: preprocessed images of shape {tuple(images.shape)}")
+        if not trees_equal(chained, composed):
+            fail("export: the chained artifacts differ from the in-process composition")
+        text = pipe.device_program_text()
+        missing = [f"{type(s).__name__}_{i}" for i, s in enumerate(pipe._device_steps)
+                   if f"# {type(s).__name__}_{i}" not in text]
+        if missing:
+            fail(f"export: device_program_text() names no node of {missing}")
+    finally:
+        pipe.stop()
+    emit({"phase": "export", "card": card,
+          "config": "bench_pipeline.build_pipeline() on the DCT wire: 6 cams x batch 8 of "
+                    "372x1024 q90 JPEG -> 256x704, heatmaps 10x64x176",
+          "file_bytes": os.path.getsize(PREPROCESS_ARTIFACT), "export_s": export_s,
+          "leaves_in": len(leaves), "leaves_out": len(names),
+          "draws": len(header["draw_schedule"]), "custom_ops": header["custom_ops"],
+          "bitwise_vs_run_device_stage": True, "draw_gaussians_per_call": 1,
+          "artifact_device_ms": artifact["device_ms"],
+          "artifact_device_ms_min_max": [artifact["device_ms_min"], artifact["device_ms_max"]],
+          "artifact_enqueue_host_ms": artifact["enqueue_host_ms"],
+          "artifact_launches": artifact["launches"],
+          "eager_device_ms": eager["device_ms"],
+          "eager_device_ms_min_max": [eager["device_ms_min"], eager["device_ms_max"]],
+          "eager_enqueue_host_ms": eager["enqueue_host_ms"], "eager_launches": eager["launches"],
+          "hold_ms": artifact["hold_ms"], "timed": EXPORT_TIMED,
+          "chained_images": list(images.shape), "chained_bitwise": True,
+          "program_text_lines": text.count("\n") + 1, "draw_gaussians_launches": launches,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -2261,6 +2617,8 @@ def main() -> int:
     trainer = petr_phase(dev, card)
     matching, matching_launches = matching_phase(dev, flush, card, trainer)
     loss_launches = matched_loss_phase(dev, card)
+    serving_phase(dev, card)
+    export_launches = export_phase(dev, card)
 
     kernels = []
     for k in KINDS:
@@ -2268,15 +2626,17 @@ def main() -> int:
         rx = results[(k, "main", True)]
         kernels.append({
             "name": ENTRY[k], "route": "cuda", "source": SOURCE, "replaces": replaces[k],
-            "launches": (main_launches[ENTRY[k]] + det2d_launches if k == "gaussians"
-                         else entry_launches[ENTRY[k]]),
+            "launches": (main_launches[ENTRY[k]] + det2d_launches + export_launches
+                         if k == "gaussians" else entry_launches[ENTRY[k]]),
             "max_abs_err": max(r["max_abs_err"], rx["max_abs_err"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "entry_ms": r["entry_ms"],
             "exact_ms": rx["ms"], "exact_plain_ms": rx["plain_ms"],
             "exact_bound_ms": rx["bound_ms"], "exact_entry_ms": rx["entry_ms"],
-            "launches_from": (f"main path ({main_launches[ENTRY[k]]}) and det2d "
-                              f"({det2d_launches})" if k == "gaussians"
+            "launches_from": (f"main path ({main_launches[ENTRY[k]]}), det2d "
+                              f"({det2d_launches}) and export ({export_launches}: the "
+                              "pipeline's batches and the exported stage's call through the "
+                              "registered operator)" if k == "gaussians"
                               else "entry-point drive"),
         })
     m = matching["example_48x300"]

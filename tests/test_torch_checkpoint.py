@@ -1,0 +1,187 @@
+"""Checkpoints of the port (``accvlab_tpu_torch.models.checkpoint``): the
+unsharded cases of ``tests/test_checkpoint_async.py`` and the proof
+obligation of ``examples/preemptible_training.py``.
+
+The sharded restores onto a mesh wait for the port of ``parallel``
+(ROADMAP.md); asking for one raises. The preempt-and-resume case trains the
+port's CenterNet on batches of the port's pipeline (random augmentation on
+the device included), checkpoints every 2 steps with ``pipe.get_state()``,
+"preempts" after step 3 (its progress is lost), rebuilds model, optimizer
+and pipeline, restores and continues: losses and final parameters are
+bitwise those of an uninterrupted run.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from accvlab_tpu_torch.models.checkpoint import (
+    latest_checkpoint,
+    restore_checkpoint,
+    save_checkpoint,
+    wait_for_checkpoints,
+)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _state(k=0.0):
+    return ({"w": torch.full((4, 3), 1.5 + k), "b": torch.arange(3, dtype=torch.float32) + k},
+            {"mu": torch.zeros((4, 3))})
+
+
+def _leaves(tree):
+    return torch.utils._pytree.tree_leaves(tree)
+
+
+def test_async_save_restores_identically(tmp_path):
+    params, opt = _state()
+    path = save_checkpoint(str(tmp_path), 7, params, opt, {"iteration": 7}, asynchronous=True)
+    # the snapshot is taken before the call returns: an in-place update now
+    # does not reach the file
+    params["w"].add_(100.0)
+    wait_for_checkpoints()
+    assert latest_checkpoint(str(tmp_path)) == path
+    rp, ro, meta = restore_checkpoint(path, {"params": params, "opt_state": opt})
+    assert meta == {"step": 7, "pipeline": {"iteration": 7}}
+    want_p, want_o = _state()
+    for a, b in zip(_leaves((want_p, want_o)), _leaves((rp, ro))):
+        assert torch.equal(a, b)
+
+
+def test_retention_keeps_newest(tmp_path):
+    for step in range(1, 5):
+        params, opt = _state(float(step))
+        save_checkpoint(str(tmp_path), step, params, opt, keep=2)
+    wait_for_checkpoints()
+    dirs = sorted(d for d in os.listdir(tmp_path)
+                  if d.startswith("step_") and os.path.isdir(tmp_path / d))
+    assert dirs == ["step_00000003", "step_00000004"]
+    metas = sorted(f for f in os.listdir(tmp_path) if f.endswith(".meta.json"))
+    assert metas == ["step_00000003.meta.json", "step_00000004.meta.json"]
+    path = latest_checkpoint(str(tmp_path))
+    rp, _, meta = restore_checkpoint(path, dict(zip(("params", "opt_state"), _state())))
+    assert meta["step"] == 4
+    assert torch.equal(rp["w"], torch.full((4, 3), 5.5))
+
+
+def test_async_retention_counts_the_save_being_written(tmp_path):
+    for step in range(1, 4):
+        params, opt = _state(float(step))
+        save_checkpoint(str(tmp_path), step, params, opt, asynchronous=True, keep=2)
+    wait_for_checkpoints()
+    assert sorted(d for d in os.listdir(tmp_path) if os.path.isdir(tmp_path / d)) == [
+        "step_00000002", "step_00000003"]
+
+
+def test_sharded_restore_waits_for_parallel(tmp_path):
+    params, opt = _state()
+    path = save_checkpoint(str(tmp_path), 1, params, opt)
+    with pytest.raises(NotImplementedError, match="parallel"):
+        restore_checkpoint(path, {"params": params, "opt_state": opt}, mesh=object())
+
+
+def test_inflight_tmp_is_never_listed_or_collected(tmp_path):
+    """An in-flight save lives under a temporary name in the checkpoint
+    directory: an orphaned one is never returned by latest_checkpoint and
+    never counts toward ``keep``."""
+    params, opt = _state()
+    committed = save_checkpoint(str(tmp_path), 7, params, opt)
+    orphan = tmp_path / "step_00000008.accvlab-checkpoint-tmp"
+    orphan.mkdir()
+    (orphan / "partial").write_text("x")
+
+    assert latest_checkpoint(str(tmp_path)) == committed
+    save_checkpoint(str(tmp_path), 9, params, opt, keep=1)
+    wait_for_checkpoints()
+    assert latest_checkpoint(str(tmp_path)).endswith("step_00000009")
+    dirs = set(os.listdir(tmp_path))
+    assert "step_00000009" in dirs and "step_00000007" not in dirs
+    assert orphan.is_dir()  # cleanup is the owner's call, not GC's
+
+
+def test_restore_places_tensors_where_the_template_lies(tmp_path):
+    params, opt = _state()
+    path = save_checkpoint(str(tmp_path), 1, params, opt)
+    template = {"params": {"w": torch.empty((4, 3), device="meta"), "b": torch.zeros(3)},
+                "opt_state": opt}
+    rp, _, _ = restore_checkpoint(path, template)
+    assert rp["w"].device.type == "meta" and rp["b"].device.type == "cpu"
+    with pytest.raises(ValueError, match="structure"):
+        restore_checkpoint(path, {"params": {"w": params["w"]}, "opt_state": opt})
+
+
+# --------------------------------------------------------------------------- #
+# preempt and resume                                                          #
+# --------------------------------------------------------------------------- #
+
+STEPS, EVERY, PREEMPT_AFTER = 6, 2, 3
+
+
+def _trainer():
+    from accvlab_tpu_torch.models.centernet import CenterNetDetector, make_train_step
+    from accvlab_tpu_torch.train_centernet_e2e import build_train_pipeline
+
+    pipe = build_train_pipeline(batch_size=2, device="cpu", num_threads=1, hw=(64, 96),
+                                num_cams=1, out_hw=(32, 64), heatmap_hw=(8, 16),
+                                num_samples=16)
+    init_fn, step = make_train_step(CenterNetDetector(num_classes=10, width=8))
+    model, opt = init_fn(0, torch.zeros((2, 32, 64, 3)), device="cpu")
+    return pipe, model, opt, step
+
+
+def _run(pipe, model, opt, step, first, last, ckpt_dir=None):
+    from accvlab_tpu_torch.train_centernet_e2e import batch_to_train_inputs
+
+    losses = []
+    for i in range(first, last + 1):
+        _, _, metrics = step(model, opt, batch_to_train_inputs(pipe.run()))
+        losses.append(metrics["loss"].clone())
+        if ckpt_dir is not None and i % EVERY == 0:
+            save_checkpoint(ckpt_dir, i, model.state_dict(), opt.state_dict(), pipe.get_state(),
+                            asynchronous=True, keep=2)
+    return losses
+
+
+def test_preempt_and_resume_is_bitwise(tmp_path):
+    pipe, model, opt, step = _trainer()
+    try:
+        want_losses = _run(pipe, model, opt, step, 1, STEPS)
+    finally:
+        pipe.stop()
+    want_params = {k: v.clone() for k, v in model.state_dict().items()}
+
+    ckpt = str(tmp_path)
+    pipe, model, opt, step = _trainer()
+    try:
+        got = _run(pipe, model, opt, step, 1, PREEMPT_AFTER, ckpt)  # step 3's work is lost
+    finally:
+        pipe.stop()
+    wait_for_checkpoints()
+
+    pipe, model, opt, step = _trainer()  # a new process would start here
+    try:
+        path = latest_checkpoint(ckpt)
+        params, opt_state, meta = restore_checkpoint(
+            path, {"params": model.state_dict(), "opt_state": None})
+        assert meta["step"] == 2 and path.endswith("step_00000002")
+        model.load_state_dict(params)
+        opt.load_state_dict(opt_state)
+        pipe.set_state(meta["pipeline"])
+        got = got[:meta["step"]] + _run(pipe, model, opt, step, meta["step"] + 1, STEPS)
+    finally:
+        pipe.stop()
+    assert len(got) == STEPS
+    for i, (g, w) in enumerate(zip(got, want_losses)):
+        assert torch.equal(g, w), f"step {i + 1}: {float(g)} != {float(w)}"
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, want_params[k]), k
+    assert np.isfinite([float(x) for x in got]).all()

@@ -16,13 +16,20 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "accvlab_tpu_torch")
 SUBPACKAGES = [
     "accvlab_tpu_torch",
+    "accvlab_tpu_torch._draws",
     "accvlab_tpu_torch.batched_loss_computation",
     "accvlab_tpu_torch.bench_pipeline",
     "accvlab_tpu_torch.color",
     "accvlab_tpu_torch.custom_processing_step",
+    "accvlab_tpu_torch.detection_serving",
     "accvlab_tpu_torch.heatmap",
+    "accvlab_tpu_torch.heatmap._ops",
     "accvlab_tpu_torch.hostcopy",
     "accvlab_tpu_torch.models",
+    "accvlab_tpu_torch.models.checkpoint",
+    "accvlab_tpu_torch.models.quantize",
+    "accvlab_tpu_torch.models.server",
+    "accvlab_tpu_torch.models.serving",
     "accvlab_tpu_torch.object_detection_2d_pipeline",
     "accvlab_tpu_torch.pipeline",
     "accvlab_tpu_torch.pipeline.inputs",
@@ -141,7 +148,36 @@ def _entry_points():
             compress_jpeg_dct(_tiny_jpeg(), (8, 16)), (8, 16), **kw),
         "object_detection_2d_pipeline.build_pipeline": lambda **kw: _tiny_det2d(**kw),
         "StructuredOutputIterator": lambda **kw: _tiny_iterator(**kw),
+        "load_inference": lambda **kw: _tiny_load(**kw),
+        "InferenceServer.from_artifact": lambda **kw: _tiny_server(**kw),
+        "detection_serving.main": lambda **kw: _tiny_serving_main(**kw),
     }
+
+
+def _tiny_artifact():
+    from accvlab_tpu_torch.models.serving import export_inference
+
+    return export_inference(lambda x: {"y": x * 2.0}, (torch.zeros((2, 3)),),
+                            batch_polymorphic=True)
+
+
+def _tiny_load(**kw):
+    from accvlab_tpu_torch.models.serving import load_inference
+
+    return load_inference(_tiny_artifact(), **kw)(torch.ones((1, 3)))
+
+
+def _tiny_server(**kw):
+    from accvlab_tpu_torch.models import InferenceServer
+
+    with InferenceServer.from_artifact(_tiny_artifact(), batch_sizes=(1,), **kw) as server:
+        return server.infer(np.ones(3, np.float32), timeout=60)
+
+
+def _tiny_serving_main(**kw):
+    from accvlab_tpu_torch.detection_serving import main
+
+    return main(batch_size=2, hw=(16, 16), **kw)
 
 
 def _tiny_det2d(**kw):
@@ -212,7 +248,8 @@ def _tiny_pipeline(stream=False, **kw):
                                   "build_stream_pipeline", "make_data", "make_head",
                                   "decompress_jpeg_dct",
                                   "object_detection_2d_pipeline.build_pipeline",
-                                  "StructuredOutputIterator"])
+                                  "StructuredOutputIterator", "load_inference",
+                                  "InferenceServer.from_artifact", "detection_serving.main"])
 def test_entry_points_default_to_cuda(name):
     fn = _entry_points()[name]
     if torch.cuda.is_available():
@@ -220,6 +257,31 @@ def test_entry_points_default_to_cuda(name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fn()
     fn(device="cpu")  # explicit CPU runs the plain versions
+
+
+@pytest.mark.parametrize("module", ["accvlab_tpu_torch.heatmap._ops",
+                                    "accvlab_tpu_torch.models.serving"])
+def test_serving_modules_import_no_pipeline_or_models(module):
+    """The registered rasterizer operator and the artifact loader import
+    nothing of ``pipeline`` or of the model definitions: a serving host
+    registers the operator alone."""
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "import torch\n"
+        "if 'heatmap._ops' in sys.argv[-1]: torch.ops.accvlab_tpu_torch.draw_gaussians\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code, module], capture_output=True, text=True,
+                         env=env, cwd=REPO, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    mods = json.loads(res.stdout.strip().splitlines()[-1])
+    banned = ("accvlab_tpu_torch.pipeline", "accvlab_tpu_torch.models.centernet",
+              "accvlab_tpu_torch.models.petr", "accvlab_tpu_torch.models.params")
+    assert not [m for m in mods if m.startswith(banned)]
+    if module.endswith("_ops"):
+        assert not [m for m in mods if m.startswith("accvlab_tpu_torch.models")]
 
 
 def test_failed_dctpack_build_raises(monkeypatch):

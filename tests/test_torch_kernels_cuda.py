@@ -201,3 +201,55 @@ def test_draw_gaussians_makes_no_blocking_copy(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert float(out.max()) == 1.0
+
+
+def _gaussian_args(device, b=4, c=10, h=64, w=176, n=32, seed=11):
+    rng = np.random.default_rng(seed)
+    return (torch.zeros(b, c, h, w, device=device),
+            t(rng.random((b, n)) < 0.9, device),
+            t(rng.integers(0, c, (b, n)).astype(np.int32), device),
+            t(np.stack([rng.integers(0, w, (b, n)), rng.integers(0, h, (b, n))], -1)
+              .astype(np.int32), device),
+            t(rng.uniform(0.5, 10.0, (b, n)).astype(np.float32), device))
+
+
+@pytest.mark.cuda
+def test_registered_op_vs_plain_and_counts_its_launch(cuda):
+    """``accvlab_tpu_torch::draw_gaussians`` on CUDA tensors launches the
+    kernel (one count per call) and equals the plain version bitwise with
+    the pinned exp."""
+    from accvlab_tpu_torch.heatmap import LAUNCHES, reset_launch_counts
+    from accvlab_tpu_torch.heatmap._ops import draw_gaussians_op
+
+    hm, active, ids, centers, radii = _gaussian_args(cuda)
+    peaks = [1.0 + 0.1 * i for i in range(10)]
+    reset_launch_counts()
+    got = draw_gaussians_op(hm, active, ids, centers, radii, peaks, 1.0 / 3.0, True)
+    assert LAUNCHES["draw_gaussians"] == 1
+    plain = draw_gaussians(hm, active, ids, centers, radii, peaks, 1.0 / 3.0,
+                           implementation="torch", exact=True)
+    torch.cuda.synchronize()
+    assert_bitwise(got, plain.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_registered_op_under_torch_export(cuda):
+    """A program exported on CUDA tensors calls the operator, which runs the
+    kernel: bitwise the plain version, one launch per call."""
+    from accvlab_tpu_torch.heatmap import LAUNCHES, reset_launch_counts
+    from accvlab_tpu_torch.models.serving import custom_ops_of
+
+    args = _gaussian_args(cuda)
+
+    class Draw(torch.nn.Module):
+        def forward(self, hm, active, ids, centers, radii):
+            return draw_gaussians(hm, active, ids, centers, radii, [1.0] * 10, 0.25, exact=True)
+
+    ep = torch.export.export(Draw(), args)
+    assert custom_ops_of(ep) == ["accvlab_tpu_torch::draw_gaussians"]
+    reset_launch_counts()
+    got = ep.module()(*args)
+    assert LAUNCHES["draw_gaussians"] == 1
+    plain = draw_gaussians(*args, [1.0] * 10, 0.25, implementation="torch", exact=True)
+    torch.cuda.synchronize()
+    assert_bitwise(got, plain.cpu().numpy())
