@@ -9,6 +9,12 @@ model of the same name, given as nested dicts of numpy arrays::
                 ...,
                 "head_heatmap": {"kernel": (1, 1, 128, 10), "bias": (10,)}, ...}}
 
+It also fills the port's
+:class:`~accvlab_tpu_torch.lane_regression_training.LaneRegressor` from the
+``init_params`` of ``examples/lane_regression_training.py``, a plain dict
+``{"w1": (1024, 128), "b1": (128,), .., "w3": (128, 16), "b3": (16,)}``
+with no ``"params"`` level.
+
 Layouts: conv kernels are HWIO there and OIHW here; ``Dense`` kernels
 ``(in, out)`` there and ``Linear`` weights ``(out, in)`` here; the attention's
 ``DenseGeneral`` kernels ``(dim, heads, head_dim)`` (query, key, value) and
@@ -107,8 +113,24 @@ def _petr_leaves(model: PETRDetector) -> dict:
     return out
 
 
+def _lane_leaves(model) -> dict:
+    out = {}
+    for i, layer in enumerate((model.fc1, model.fc2, model.fc3), start=1):
+        out[(f"w{i}",)] = (layer.weight, DENSE)
+        out[(f"b{i}",)] = (layer.bias, SAME)
+    return out
+
+
+def _is_lane(model) -> bool:
+    from ..lane_regression_training import LaneRegressor
+
+    return isinstance(model, LaneRegressor)
+
+
 def _leaves(model: Model) -> Dict[Tuple[str, ...], Tuple[torch.Tensor, Layout]]:
     """flax path -> (port parameter, its layout)."""
+    if _is_lane(model):
+        return _lane_leaves(model)
     if isinstance(model, PETRDetector):
         return _petr_leaves(model)
     if isinstance(model, CenterNetDetector):
@@ -132,10 +154,14 @@ def _numpy(param: torch.Tensor) -> np.ndarray:
 def load_jax_params(module: Model, params: dict) -> Model:
     """Copy flax variables ``{"params": {...}}`` into ``module`` (in place;
     returns it). Raises ``ValueError`` on a missing, extra or mis-shaped
-    leaf, before anything is copied."""
-    if set(params) != {"params"}:
+    leaf, before anything is copied. A ``LaneRegressor`` takes the example's
+    plain dict, without the ``"params"`` level."""
+    if _is_lane(module):
+        given = _flatten(params)
+    elif set(params) != {"params"}:
         raise ValueError(f"expected the flax variables {{'params': ...}}, got keys {sorted(params)}")
-    given = _flatten(params["params"])
+    else:
+        given = _flatten(params["params"])
     expected = _leaves(module)
     missing = sorted("/".join(p) for p in set(expected) - set(given))
     extra = sorted("/".join(p) for p in set(given) - set(expected))
@@ -157,11 +183,12 @@ def load_jax_params(module: Model, params: dict) -> Model:
 
 def jax_params_of(module: Model) -> dict:
     """The module's parameters as flax variables of numpy arrays in flax's
-    layouts, the inverse of :func:`load_jax_params`."""
+    layouts, the inverse of :func:`load_jax_params` (a ``LaneRegressor``'s
+    as the example's plain dict)."""
     tree: dict = {}
     for path, (param, (_, to_flax)) in _leaves(module).items():
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = np.ascontiguousarray(to_flax(_numpy(param)))
-    return {"params": tree}
+    return tree if _is_lane(module) else {"params": tree}

@@ -1,7 +1,7 @@
-"""Input sources for the pipeline framework (port of ``accvlab_tpu.pipeline.inputs``;
-``ElasticShardedInputCallable`` is later work, see ROADMAP.md)."""
+"""Input sources for the pipeline framework (port of ``accvlab_tpu.pipeline.inputs``)."""
 
 from .base import CallableBase, DataProvider, IterableBase, SampleInfo, SamplerBase
+from .elastic_sharded_input_callable import ElasticShardedInputCallable, elastic_reshard
 from .multicam_jpeg import MultiCameraJpegProvider
 from .multicam_synthetic import MultiCameraSyntheticProvider
 from .sampler_input_callable import SamplerInputCallable
@@ -12,6 +12,7 @@ from .shuffled_sharded_input_callable import ShuffledShardedInputCallable
 __all__ = [
     "CallableBase",
     "DataProvider",
+    "ElasticShardedInputCallable",
     "IterableBase",
     "MultiCameraJpegProvider",
     "MultiCameraSyntheticProvider",
@@ -21,4 +22,5 @@ __all__ = [
     "SamplerInputIterable",
     "SequenceSampler",
     "ShuffledShardedInputCallable",
+    "elastic_reshard",
 ]

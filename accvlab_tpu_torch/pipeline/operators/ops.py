@@ -272,8 +272,11 @@ def apply_matrix(
         data = torch.as_tensor(to_apply_to, dtype=torch.float32, device=dev)
         mat = torch.as_tensor(matrix, dtype=torch.float32, device=dev)
         cat, trans = torch.cat, (lambda a: a.transpose(-1, -2))
-        inv, ones = torch.linalg.inv, (lambda shape: torch.ones(shape, dtype=torch.float32,
-                                                                 device=dev))
+        # inv_ex: linalg.inv's result without its check of the info on the
+        # host (a synchronisation on the card); a singular matrix gives
+        # non-finite entries, as jnp.linalg.inv does
+        inv = lambda a: torch.linalg.inv_ex(a)[0]  # noqa: E731
+        ones = lambda shape: torch.ones(shape, dtype=torch.float32, device=dev)  # noqa: E731
     else:
         data = np.asarray(to_apply_to, dtype=np.float32)
         mat = np.asarray(matrix, dtype=np.float32)

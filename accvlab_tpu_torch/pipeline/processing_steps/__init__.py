@@ -1,5 +1,5 @@
-"""Processing steps (port of ``accvlab_tpu.pipeline.processing_steps``; the
-steps still to port are listed in ROADMAP.md)."""
+"""Processing steps (port of ``accvlab_tpu.pipeline.processing_steps``, every
+step of it)."""
 
 from .pipeline_step_base import BatchLevelStepBase, PipelineStepBase
 from .affine_transformer import AffineTransformer
@@ -11,6 +11,7 @@ from .applied_steps import (
     DataGroupsWithNameAppliedStep,
     GroupToApplyToSelectedStepBase,
 )
+from .bev_bboxes_transformer_3d import BEVBBoxesTransformer3D
 from .bounding_box_to_heatmap_converter import BoundingBoxToHeatmapConverter
 from .color_converter import YCbCrToRGBConverter
 from .dct_wire import (
@@ -42,6 +43,7 @@ __all__ = [
     "AffineTransformer",
     "AnnotationElementConditionEval",
     "AxesLayoutSetter",
+    "BEVBBoxesTransformer3D",
     "BatchLevelStepBase",
     "BoundingBoxToHeatmapConverter",
     "ConditionalElementRemover",

@@ -171,13 +171,45 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              (preprocessed 48 images -> the serving artifact) bitwise the
              in-process composition; device_program_text() naming every
              device step;
-17. the {"kernels": [...]} line, the nvidia-smi line, and last the result
+17. polyline — scripts/bench_polyline.py's grid (batch 1, 64 x points 10,
+             100, 1000 x distances 10, 100, 1000; its cases and seeds, from
+             scripts/torch_bench_polyline.py): interpolate on the card against
+             the port on the CPU and the float64 numpy restatement, within
+             8 * eps_f32 * the longest polyline; ms per call (CUDA events,
+             POLY_K calls chained through the previous output, median of
+             POLY_REPS) beside numpy's host ms, launches per call (profiler);
+             the var-size forms on 64 polylines of 2-1000 points; one call of
+             each under the sync check;
+18. lane   — lane_regression_training.run's loop at the example's width
+             (batch 32, 32x32 rasters, 8 control points, 16 arc-length
+             samples, 150 steps, Adam 3e-3) from seeded parameters: the last
+             loss below half the first, the first LANE_PARITY_STEPS losses
+             within LANE_TOL of a CPU run from the same parameters; device ms
+             and launches per step; one step under the sync check;
+19. bev    — BEVBBoxesTransformer3D over a seeded 3-D provider (batch 8 x 64
+             boxes, 6 cameras' projection @ extrinsics, ego<->world) with
+             StreamPETR's nuScenes rotation and scaling and a translation whose
+             z range is constant: BEV_BATCHES batches through run(), one host
+             batch's stage on the card (sync check) and on the CPU within
+             BEV_TOL, the JAX test's invariants, the exported stage bitwise
+             the eager one, device ms and launches per batch;
+20. elastic — the elastic stanza of examples/preemptible_training.py: a
+             2-shard fleet takes 2 steps, elastic_reshard to 3 shards drains
+             the epoch (28 distinct samples), then 2 -> 3 -> 1 (all 32 once),
+             the images normalized on the card;
+21. tools  — bench.py's main path (DCT wire, full width) with TraceRangeWrapper
+             ranges (sync_on_pop) around the consumer's batch, forward and
+             gradients under torch.profiler: every range in the trace, each
+             closing after the device work it launched; TensorDumper dumps the
+             last batch and its CenterNet gradients, compares them clean, a
+             value within eps clean, and reports one moved one ulp past eps;
+22. the {"kernels": [...]} line, the nvidia-smi line, and last the result
    line {"ok": true, "device": {...}}.
 
 The pipeline phases (main, main_yuv, main_frames, echo, det2d, workers, train, input_idle,
-petr, export) each count the rasterizer's launches from 0 and fail unless it ran once per
-delivered pipeline batch; the kernels line's draw_gaussians launches are main's, det2d's and
-export's. The encoded JPEGs are kept in build/bench_cache (bench.py's
+petr, export, tools) each count the rasterizer's launches from 0 and fail unless it ran once
+per delivered pipeline batch; the kernels line's draw_gaussians launches are main's, det2d's,
+export's and tools'. The encoded JPEGs are kept in build/bench_cache (bench.py's
 cache format) for the phases after the first.
 
 Exits non-zero without a result when torch.cuda.is_available() is false.
@@ -195,6 +227,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from accvlab_tpu_torch.tools.launch_counts import kernel_counts
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -777,28 +811,6 @@ def main_frames_phase(dev, card: str):
           "bytes_per_batch": stats["bytes_per_batch"],
           "input_bound_frac": stats["input_bound_frac"],
           "config": "raw RGB frames (2 unique sets): 6 cams x 372x1024, batch 8 -> 256x704"})
-
-
-def kernel_counts(fn):
-    """``fn()`` once under torch.profiler: its device kernels, memsets and
-    copies, counted from the profiler's CUDA rows, and ``busy_ms``, the sum
-    of their device times (gaps between them left out)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    counts = {"kernels": 0, "memsets": 0, "copies": 0, "busy_ms": 0.0}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        kind = ("copies" if e.key.startswith("Memcpy") else
-                "memsets" if e.key.startswith("Memset") else "kernels")
-        counts[kind] += e.count
-        counts["busy_ms"] += e.self_device_time_total / 1e3
-    return counts
 
 
 def decode_readings(run_step, reps: int = N_TIMED, sleep_cycles: int = DECODE_SLEEP_CYCLES
@@ -2571,6 +2583,616 @@ def export_phase(dev, card: str) -> int:
     return launches
 
 
+# --------------------------------------------------------------------- #
+# polyline, lane, bev, elastic, tools                                   #
+# --------------------------------------------------------------------- #
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+F32_EPS = float(np.finfo(np.float32).eps)
+POLY_K = 64  # calls per timed chain
+POLY_REPS = 5
+POLY_RAGGED = {"polylines": 64, "points": (2, 1000), "dists": 100}
+LANE_STEPS = 150
+LANE_BATCH = 32
+LANE_PARITY_STEPS = 5
+# card against CPU, the same parameters and batches: float32 products and
+# sums in another order on each side, carried forward by Adam
+LANE_TOL = 1e-4
+BEV_BATCH = 8
+BEV_BOXES = 64
+BEV_CAMS = 6
+BEV_BATCHES = 5
+# StreamPETR's nuScenes GlobalRotScaleTransImage: rot_range, scale_ratio_range
+BEV_ROTATION = (-0.3925, 0.3925)
+BEV_SCALING = (0.95, 1.05)
+# z at 0: the constant (lo == hi) path draws nothing
+BEV_TRANSLATION = (0.5, 0.5, 0.0)
+BEV_TOL = 1e-5  # card against CPU, relative to each output's largest magnitude
+BEV_ARTIFACT = os.path.join(BUILD_DIR, "bev_stage.accvserve")
+ELASTIC = {"samples": 32, "batch": 4, "seed": 11, "hw": (24, 32)}
+TOOLS_BATCHES = 3
+TOOLS_RANGES = ("tools.batch", "tools.forward", "tools.backward")
+TOOLS_EPS = 1e-6
+TOOLS_DUMP = os.path.join(BUILD_DIR, "tools_dump")
+
+
+def script_module(name: str):
+    """``scripts/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "scripts",
+                                                                     f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sync_free(what: str, fn):
+    """``fn()`` under torch.cuda.set_sync_debug_mode("error"); fails the
+    run on any host synchronisation."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = fn()
+    except RuntimeError as e:
+        fail(f"{what} synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return res
+
+
+def poly_tol(points: np.ndarray, sizes=None) -> float:
+    """``8 * eps_f32 * max total length``: the float32 prefix sum's rounding."""
+    p = np.asarray(points, np.float64)
+    seg = np.linalg.norm(np.diff(p, axis=1), axis=2)
+    if sizes is not None:
+        seg = np.where(np.arange(seg.shape[1])[None] < np.asarray(sizes)[:, None] - 1, seg, 0)
+    return 8 * F32_EPS * max(float(seg.sum(axis=1).max()), 1.0)
+
+
+def max_abs(a, b) -> float:
+    a, b = torch.as_tensor(a).double().cpu(), torch.as_tensor(b).double().cpu()
+    if a.shape != b.shape or bool((a.isnan() != b.isnan()).any()):
+        return float("inf")
+    fin = ~a.isnan()
+    return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def polyline_ragged_case(seed: int = 11):
+    rng = np.random.default_rng(seed)
+    n, (lo, hi), m = POLY_RAGGED["polylines"], POLY_RAGGED["points"], POLY_RAGGED["dists"]
+    sizes = rng.integers(lo, hi + 1, n).astype(np.int32)
+    pts = np.cumsum(rng.uniform(-1, 1, (n, hi, 2)), axis=1).astype(np.float32)
+    pts[np.arange(hi)[None] >= sizes[:, None]] = 0.0
+    dsz = rng.integers(1, m + 1, n).astype(np.int32)
+    rel = rng.uniform(0, 1, (n, m)).astype(np.float32)
+    return pts, sizes, rel, dsz
+
+
+def polyline_phase(dev, card: str):
+    """bench_polyline's grid on the card: each case against the port on the
+    CPU and the float64 numpy restatement, its chained ms per call beside
+    numpy's host ms, and its launches; the var-size forms on a ragged batch;
+    one call of each under the sync check."""
+    from accvlab_tpu_torch.polyline import (interpolate, interpolate_var_size_batch, lengths,
+                                            lengths_var_size_batch)
+    from accvlab_tpu_torch.ragged import RaggedBatch
+
+    t_phase = time.perf_counter()
+    bench = script_module("torch_bench_polyline")
+    rows = []
+    for (b, n, m), (pts, rel) in bench.cases():
+        p, r = torch.from_numpy(pts).to(dev), torch.from_numpy(rel).to(dev)
+        got = interpolate(p, r, relative=True)
+        cpu = interpolate(torch.from_numpy(pts), torch.from_numpy(rel), relative=True)
+        tol = poly_tol(pts)
+        err_cpu, err_f64 = max_abs(got, cpu), max_abs(got, bench.numpy_relative(pts, rel))
+        err_len = max_abs(lengths(p), lengths(torch.from_numpy(pts)))
+        if not bool(torch.isfinite(got).all()) or max(err_cpu, err_f64, err_len) > tol:
+            fail(f"polyline: case {(b, n, m)} off by {err_cpu} (CPU), {err_f64} (float64), "
+                 f"{err_len} (lengths) against the tolerance {tol}")
+        ms = bench.chained_ms(p, r, POLY_K, POLY_REPS)
+        np_ms = bench.numpy_ms(pts, rel, budget_s=0.25)
+        rows.append({"batch": b, "points": n, "dists": m, "ms": ms, "numpy_ms": np_ms,
+                     "vs_numpy": np_ms / ms, "max_abs_err_cpu": err_cpu,
+                     "max_abs_err_f64": err_f64, "tol": tol,
+                     "launches_per_call": kernel_counts(
+                         lambda: interpolate(p, r, relative=True))})
+    pts, sizes, rel, dsz = polyline_ragged_case()
+
+    def ragged(device):
+        t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+        rp = RaggedBatch(t(pts), sample_sizes=t(sizes))
+        rd = RaggedBatch(t(rel), sample_sizes=t(dsz))
+        return lambda: (interpolate_var_size_batch(rp, rd, relative=True),
+                        lengths_var_size_batch(rp))
+
+    (got, got_len), (cpu, cpu_len) = ragged(dev)(), ragged(torch.device("cpu"))()
+    tol = poly_tol(pts, sizes)
+    err_cpu = max(max_abs(got.tensor, cpu.tensor), max_abs(got_len, cpu_len))
+    err_f64 = 0.0
+    out = got.tensor.cpu().numpy()
+    for s in range(len(sizes)):
+        want = bench.numpy_relative(pts[s:s + 1, :sizes[s]], rel[s:s + 1, :dsz[s]])[0]
+        err_f64 = max(err_f64, float(np.abs(out[s, :dsz[s]] - want).max()))
+    if max(err_cpu, err_f64) > tol or not bool((got.tensor.cpu()[~got.mask.cpu()] == 0).all()):
+        fail(f"polyline: the ragged batch off by {err_cpu} (CPU), {err_f64} (float64) against "
+             f"{tol}, or a distance past its sample's count is not 0")
+    p, r = torch.from_numpy(pts).to(dev), torch.from_numpy(rel).to(dev)
+    sync_free("polyline: interpolate", lambda: interpolate(p, r, relative=True))
+    sync_free("polyline: the var-size forms", ragged(dev))
+    emit({"phase": "polyline", "card": card, "k": POLY_K, "reps": POLY_REPS, "cases": rows,
+          "ragged": {**POLY_RAGGED, "max_abs_err_cpu": err_cpu, "max_abs_err_f64": err_f64,
+                     "tol": tol, "launches_per_call": kernel_counts(ragged(dev))},
+          "sync_free": True, "phase_s": time.perf_counter() - t_phase})
+
+
+def lane_phase(dev, card: str):
+    """lane_regression_training's run at the example's width on the card:
+    the loss halves, the first steps agree with a CPU run from the same
+    parameters; device ms and launches per step; one step sync-free."""
+    from accvlab_tpu_torch import lane_regression_training as L
+    from accvlab_tpu_torch.models.params import jax_params_of
+
+    t_phase = time.perf_counter()
+    params = jax_params_of(L.LaneRegressor(seed=0))
+    t0 = time.perf_counter()
+    model, losses = L.train(LANE_STEPS, LANE_BATCH, 0, device=dev, params=params)
+    run_s = time.perf_counter() - t0
+    _, cpu_losses = L.train(LANE_PARITY_STEPS, LANE_BATCH, 0, device="cpu", params=params)
+    if not all(np.isfinite(losses)) or not losses[-1] < 0.5 * losses[0]:
+        fail(f"lane: the loss went {losses[0]} -> {losses[-1]}, not below half")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)]
+    if max(rel) > LANE_TOL:
+        fail(f"lane: the first {LANE_PARITY_STEPS} losses {losses[:LANE_PARITY_STEPS]} differ "
+             f"from the CPU's {cpu_losses} by up to {max(rel)} (relative)")
+    step, _ = L.make_train_step(model)
+    rasters, gt = L.batch_to_device(*L.make_lane_batch(LANE_BATCH, np.random.default_rng(1)),
+                                    dev)
+    step(rasters, gt)
+    sync_free("lane: a train step", lambda: step(rasters, gt))
+    readings = decode_readings(lambda: step(rasters, gt), reps=20)
+    emit({"phase": "lane", "card": card,
+          "config": "examples/lane_regression_training.py: MLP 1024-128-128-16 on 32x32 "
+                    "rasters, batch 32, 8 control points, 16 arc-length samples, Adam 3e-3",
+          "steps": LANE_STEPS, "first_loss": losses[0], "last_loss": losses[-1],
+          "losses_every_25": losses[::25], "cpu_losses": cpu_losses,
+          "max_rel_vs_cpu": max(rel), "tol": LANE_TOL,
+          "ms_per_step_wall": run_s / LANE_STEPS * 1e3,
+          "device_ms_per_step": readings["device_ms"],
+          "device_ms_min_max": [readings["device_ms_min"], readings["device_ms_max"]],
+          "enqueue_host_ms": readings["enqueue_host_ms"], "hold_ms": readings["hold_ms"],
+          "launches_per_step": readings["launches"], "sync_free_step": True,
+          "phase_s": time.perf_counter() - t_phase})
+
+
+def bev_provider(num_samples: int, boxes: int = BEV_BOXES, cams: int = BEV_CAMS):
+    """Seeded 3-D samples: ``boxes`` boxes (centres, velocities, sizes,
+    yaw) in the ego frame, ``cams`` cameras' 4x4 projection @ extrinsics,
+    ``ego_to_world`` and its inverse ``world_to_ego``."""
+    from accvlab_tpu_torch.pipeline import DType, SampleDataGroup
+    from accvlab_tpu_torch.pipeline.inputs import DataProvider
+
+    def rot_z(a):
+        c, s = np.cos(a), np.sin(a)
+        return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+    class BEVProvider(DataProvider):
+        @property
+        def sample_data_structure(self):
+            ann = SampleDataGroup()
+            for name in ("centers3d", "velocities", "sizes3d", "yaw"):
+                ann.add_data_field(name, DType.FLOAT)
+            sdg = SampleDataGroup()
+            sdg.add_data_group_field("annotations", ann)
+            for name in ("cam_proj", "ego_to_world", "world_to_ego"):
+                sdg.add_data_field(name, DType.FLOAT)
+            return sdg
+
+        def get_data(self, i):
+            rng = np.random.default_rng(20_000 + i)
+            sdg = self.sample_data_structure
+            ann = sdg["annotations"]
+            ann["centers3d"] = np.concatenate(
+                [rng.uniform(-51.2, 51.2, (boxes, 2)), rng.uniform(-5.0, 3.0, (boxes, 1))],
+                1).astype(np.float32)
+            ann["velocities"] = np.concatenate(
+                [rng.normal(0.0, 3.0, (boxes, 2)), np.zeros((boxes, 1))], 1).astype(np.float32)
+            ann["sizes3d"] = rng.uniform(0.5, 5.0, (boxes, 3)).astype(np.float32)
+            ann["yaw"] = rng.uniform(-np.pi, np.pi, boxes).astype(np.float32)
+            intr = np.array([[1266.4, 0.0, 816.3, 0.0], [0.0, 1266.4, 491.5, 0.0],
+                             [0.0, 0.0, 1.0, 0.0], [0.0, 0.0, 0.0, 1.0]])
+            to_cam = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+            projs = []
+            for c in range(cams):
+                ext = np.eye(4)
+                ext[:3, :3] = to_cam @ rot_z(-2 * np.pi * c / cams + rng.normal(0.0, 0.02))
+                ext[:3, 3] = ext[:3, :3] @ -np.array([1.5, 0.0, 1.6]) + rng.normal(0, 0.05, 3)
+                projs.append(intr @ ext)
+            sdg["cam_proj"] = np.stack(projs).astype(np.float32)
+            e2w = np.eye(4)
+            e2w[:3, :3] = rot_z(rng.uniform(-np.pi, np.pi))
+            e2w[:3, 3] = rng.uniform(-50.0, 50.0, 3) * np.array([1.0, 1.0, 0.05])
+            sdg["ego_to_world"] = e2w.astype(np.float32)
+            sdg["world_to_ego"] = np.linalg.inv(e2w).astype(np.float32)
+            return sdg
+
+        def get_number_of_samples(self):
+            return num_samples
+
+    return BEVProvider()
+
+
+def bev_step(rotation=BEV_ROTATION, scaling=BEV_SCALING, translation=BEV_TRANSLATION):
+    from accvlab_tpu_torch.pipeline.processing_steps import BEVBBoxesTransformer3D
+
+    return BEVBBoxesTransformer3D(
+        data_field_names_points="centers3d", data_field_names_velocities="velocities",
+        data_field_names_sizes="sizes3d", data_field_names_orientation="yaw",
+        data_field_names_proj_matrices_and_extrinsics="cam_proj",
+        data_field_names_ego_to_world="ego_to_world",
+        data_field_names_world_to_ego="world_to_ego",
+        rotation_range=rotation, rotation_axis=2 if rotation else None,
+        scaling_range=scaling, translation_max_abs=translation)
+
+
+def bev_definition(provider, batch: int = BEV_BATCH):
+    from accvlab_tpu_torch.pipeline import PipelineDefinition
+    from accvlab_tpu_torch.pipeline.inputs import ShuffledShardedInputCallable
+
+    return PipelineDefinition(ShuffledShardedInputCallable(provider, batch, shuffle=True),
+                              [bev_step()], copy_external_source_passthrough_outputs=False)
+
+
+def bev_invariants(names, before, after) -> dict:
+    """The JAX test's invariants (tests/test_bev_transformer.py:110-157) on a
+    batch: ``world_to_ego @ ego_to_world`` the identity (max |error|), and
+    each camera's projection of the moved centres that of the original
+    centres (max of ``|error| / (1e-3 + 1e-3 |original|)``; at most 1)."""
+    b = {n: torch.as_tensor(v).double().cpu() for n, v in zip(names, before)}
+    a = {n: torch.as_tensor(v).double().cpu() for n, v in zip(names, after)}
+    ident = (a["world_to_ego"] @ a["ego_to_world"] - torch.eye(4, dtype=torch.float64)).abs()
+
+    def project(d):
+        c = d["annotations.centers3d"]
+        h = torch.cat([c, torch.ones_like(c[..., :1])], -1)  # (B, N, 4)
+        return d["cam_proj"] @ h.transpose(-1, -2)[:, None]  # (B, cams, 4, N)
+
+    want = project(b)
+    proj = ((project(a) - want).abs() / (1e-3 + 1e-3 * want.abs())).max()
+    return {"w2e_e2w_identity_max_abs": float(ident.max()), "projection_rel": float(proj)}
+
+
+def bev_phase(dev, card: str):
+    """The 3-D BEV step on the card: a few batches through run(); one host
+    batch's stage on the card (sync-free) and on the CPU; the invariants;
+    the exported stage bitwise the eager one; device ms and launches."""
+    from accvlab_tpu_torch.models.serving import load_inference
+
+    t_phase = time.perf_counter()
+    threads = os.cpu_count() or 8
+    definition = bev_definition(bev_provider(BEV_BATCH * (BEV_BATCHES + 4)))
+    pipe = definition.get_pipeline(batch_size=BEV_BATCH, num_threads=threads, device=dev,
+                                   seed=3)
+    try:
+        outs = [pipe.run() for _ in range(BEV_BATCHES)]
+        torch.cuda.synchronize()
+        for out in outs:
+            bad = [k for k, v in out.items() if not (v.is_cuda and bool(torch.isfinite(v).all()))]
+            if bad or tuple(out["cam_proj"].shape) != (BEV_BATCH, BEV_CAMS, 4, 4) \
+                    or tuple(out["annotations.centers3d"].shape) != (BEV_BATCH, BEV_BOXES, 3):
+                fail(f"bev: unexpected outputs (not finite on the card: {bad})")
+    finally:
+        pipe.stop()
+    pipe = definition.get_pipeline(batch_size=BEV_BATCH, num_threads=threads, device=dev, seed=3)
+    cpu = definition.get_pipeline(batch_size=BEV_BATCH, num_threads=threads, device="cpu",
+                                  seed=3)
+    try:
+        idx, _, _, host = pipe._produce_host_batch()
+        leaves = pipe._transfer(host)
+        pipe.run_device_stage(leaves, idx)  # warm-up
+        got = sync_free("bev: the device stage", lambda: pipe.run_device_stage(leaves, idx))
+        want = cpu.run_device_stage([torch.from_numpy(a) for a in host], idx)
+        names = list(pipe.output_names)
+        rel = max(max_abs(g, w) / max(float(w.abs().max()), 1e-30) for g, w in zip(got, want))
+        if rel > BEV_TOL:
+            fail(f"bev: the card differs from the CPU by {rel} (relative), beyond {BEV_TOL}")
+        inv = bev_invariants(names, [torch.from_numpy(a) for a in host], got)
+        if inv["w2e_e2w_identity_max_abs"] > 1e-4 or inv["projection_rel"] > 1.0:
+            fail(f"bev: the invariants do not hold: {inv}")
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        header = pipe.export_device_program(BEV_ARTIFACT)
+        serve = load_inference(BEV_ARTIFACT)
+        replay = serve(leaves, (3, idx))
+        if len(replay) != len(got) or not all(torch.equal(a, b) for a, b in zip(replay, got)):
+            fail("bev: the exported stage differs from the eager stage")
+        readings = decode_readings(lambda: pipe.run_device_stage(leaves, idx), reps=20)
+    finally:
+        pipe.stop()
+        cpu.stop()
+    emit({"phase": "bev", "card": card,
+          "config": f"BEVBBoxesTransformer3D, batch {BEV_BATCH} x {BEV_BOXES} boxes, "
+                    f"{BEV_CAMS} cameras' projection @ extrinsics, ego<->world; rotation "
+                    f"{BEV_ROTATION} about z, scaling {BEV_SCALING} (StreamPETR's nuScenes "
+                    f"GlobalRotScaleTransImage), translation max {BEV_TRANSLATION}",
+          "batches": BEV_BATCHES, "max_rel_vs_cpu": rel, "tol": BEV_TOL, "invariants": inv,
+          "draws": [e["kind"] for e in header["draw_schedule"]],
+          "export_bitwise": True, "sync_free_stage": True,
+          "device_ms_per_batch": readings["device_ms"],
+          "device_ms_min_max": [readings["device_ms_min"], readings["device_ms_max"]],
+          "enqueue_host_ms": readings["enqueue_host_ms"], "hold_ms": readings["hold_ms"],
+          "launches_per_batch": readings["launches"],
+          "phase_s": time.perf_counter() - t_phase})
+
+
+def elastic_provider(n: int):
+    """examples/preemptible_training.py's JPEG dataset (24x32, seed 7) with
+    the label set to the sample index."""
+    import io
+
+    from PIL import Image
+
+    from accvlab_tpu_torch.pipeline import DType, SampleDataGroup
+    from accvlab_tpu_torch.pipeline.inputs import DataProvider
+
+    rng = np.random.default_rng(7)
+    jpegs = []
+    for _ in range(n):
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 255, (*ELASTIC["hw"], 3), np.uint8)).save(
+            buf, format="JPEG", quality=92)
+        jpegs.append(np.frombuffer(buf.getvalue(), np.uint8).copy())
+
+    class UniqueLabelProvider(DataProvider):
+        @property
+        def sample_data_structure(self):
+            sdg = SampleDataGroup()
+            sdg.add_data_field("image", DType.UINT8)
+            sdg.add_data_field("label", DType.INT32)
+            return sdg
+
+        def get_data(self, i):
+            sdg = self.sample_data_structure
+            sdg["image"] = jpegs[i]
+            sdg["label"] = i
+            return sdg
+
+        def get_number_of_samples(self):
+            return n
+
+    return UniqueLabelProvider()
+
+
+def elastic_fleet(provider, num_shards: int, dev, extra=None):
+    from accvlab_tpu_torch.pipeline import PipelineDefinition
+    from accvlab_tpu_torch.pipeline.inputs import ElasticShardedInputCallable
+    from accvlab_tpu_torch.pipeline.processing_steps import ImageDecoder, ImageRange01Normalizer
+
+    fleet = []
+    for s in range(num_shards):
+        inp = ElasticShardedInputCallable(provider, ELASTIC["batch"], shard_id=s,
+                                          num_shards=num_shards, shuffle=True,
+                                          seed=ELASTIC["seed"], **(extra or {}))
+        definition = PipelineDefinition(inp, [ImageDecoder("image"),
+                                              ImageRange01Normalizer("image")])
+        fleet.append(definition.get_pipeline(batch_size=ELASTIC["batch"], num_threads=1,
+                                             seed=3, device=dev))
+    return fleet
+
+
+def elastic_steps(fleet, steps=None) -> list:
+    """Lockstep steps of every shard (all of the epoch when ``steps`` is
+    None); the delivered labels, checking each image on the card."""
+    labels, done = [], [False] * len(fleet)
+    while not all(done) and (steps is None or steps > 0):
+        for i, p in enumerate(fleet):
+            if done[i]:
+                continue
+            try:
+                out = p.run()
+            except StopIteration:
+                done[i] = True
+                continue
+            img = out["image"]
+            if not img.is_cuda or tuple(img.shape) != (ELASTIC["batch"], *ELASTIC["hw"], 3):
+                fail(f"elastic: a delivered image is {tuple(img.shape)} on {img.device}")
+            labels += out["label"].cpu().reshape(-1).tolist()
+        steps = None if steps is None else steps - 1
+    return labels
+
+
+def elastic_phase(dev, card: str):
+    """The elastic stanza of examples/preemptible_training.py on the port
+    (2 shards x 2 steps, reshard to 3 shards, drain the epoch: 28 distinct
+    samples), then a chained reshard 2 -> 3 -> 1 (all 32, each once)."""
+    from accvlab_tpu_torch.pipeline.inputs import elastic_reshard
+
+    t_phase = time.perf_counter()
+    provider = elastic_provider(ELASTIC["samples"])
+
+    def run_fleets(plan):
+        """``plan``: (num_shards, steps or None to drain) per fleet; each
+        later fleet resumes from the one before through elastic_reshard."""
+        labels, extra, state = [], None, None
+        for num_shards, steps in plan:
+            fleet = elastic_fleet(provider, num_shards, dev, extra)
+            try:
+                for p in fleet:
+                    if state is not None:
+                        p.set_state(dict(state))
+                labels += elastic_steps(fleet, steps)
+                snapshot = fleet[0].get_state()
+            finally:
+                for p in fleet:
+                    p.stop()
+            extra, state = elastic_reshard(json.loads(json.dumps(snapshot)))
+        return labels
+
+    stanza = run_fleets([(2, 2), (3, None)])
+    if len(stanza) != 28 or len(set(stanza)) != 28:
+        fail(f"elastic: the stanza delivered {len(stanza)} samples, {len(set(stanza))} distinct"
+             " (28 of each expected)")
+    chained = run_fleets([(2, 1), (3, 1), (1, None)])
+    if sorted(chained) != list(range(ELASTIC["samples"])):
+        fail(f"elastic: the chained reshard 2 -> 3 -> 1 delivered {sorted(chained)}")
+    emit({"phase": "elastic", "card": card,
+          "config": "examples/preemptible_training.py's elastic stanza: 32 JPEGs of 24x32, "
+                    "batch 4 per shard, shuffled (seed 11); ImageDecoder on the host, "
+                    "ImageRange01Normalizer on the card",
+          "stanza_2_to_3": {"delivered": len(stanza), "distinct": len(set(stanza))},
+          "chained_2_3_1": {"delivered": len(chained), "distinct": len(set(chained))},
+          "phase_s": time.perf_counter() - t_phase})
+
+
+def trace_ranges_check(doc: dict) -> dict:
+    """Every TOOLS_RANGES name TOOLS_BATCHES times among the trace's
+    annotations; each range closes after the device work it launched (the
+    kernels, copies and memsets whose runtime call lies inside it, on its
+    thread). Returns counts and the smallest margin (µs, range end minus
+    the last such kernel's end)."""
+    events = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and e["name"] in TOOLS_RANGES]
+    counts = {n: sum(e["name"] == n for e in ranges) for n in TOOLS_RANGES}
+    if any(c != TOOLS_BATCHES for c in counts.values()):
+        fail(f"tools: the trace's ranges {counts}, not {TOOLS_BATCHES} of each")
+    device = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and "correlation" in e.get("args", {})}
+    runtime = [e for e in events if e.get("cat") == "cuda_runtime"
+               and e.get("args", {}).get("correlation") in device]
+    margin, with_work = float("inf"), 0
+    for r in ranges:
+        end = r["ts"] + r["dur"]
+        ends = [device[e["args"]["correlation"]]["ts"] + device[e["args"]["correlation"]]["dur"]
+                for e in runtime if e["tid"] == r["tid"] and r["ts"] <= e["ts"] <= end]
+        if ends:
+            with_work += 1
+            margin = min(margin, end - max(ends))
+    if with_work == 0 or margin < 0:
+        fail(f"tools: a sync_on_pop range closed {-margin} µs before its device work "
+             f"({with_work} ranges with device work)")
+    return {"ranges": counts, "ranges_with_device_work": with_work, "min_margin_us": margin}
+
+
+def tools_phase(dev, card: str) -> int:
+    """bench.py's main path (DCT wire, full width) with TraceRangeWrapper
+    ranges around the consumer's steps under torch.profiler; TensorDumper
+    dumps one delivered batch and its CenterNet step's gradients and
+    compares them again. Returns the rasterizer's launches."""
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from accvlab_tpu_torch.bench_pipeline import build_pipeline, dense_focal_loss, model_inputs
+    from accvlab_tpu_torch.heatmap import LAUNCHES, reset_launch_counts
+    from accvlab_tpu_torch.models.centernet import CenterNetDetector, init_params
+    from accvlab_tpu_torch.tools import TensorDumper, TraceRangeWrapper
+
+    t_phase = time.perf_counter()
+    num_cams = WIDTH["cams"]
+    model = CenterNetDetector(num_classes=10, width=64)
+    init_params(model, torch.Generator().manual_seed(0)).to(dev)
+    params = dict(model.named_parameters())
+    TraceRangeWrapper._reset_singleton()
+    ranges = TraceRangeWrapper()
+    ranges.enable(sync_on_pop=True, keep_track_of_range_order=True, device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    pipe = build_pipeline(batch_size=WIDTH["batch"], device=dev, cache_dir=CACHE_DIR)
+    try:
+        pipe.run()  # outside the trace: the ring filled, the constants on the card
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(TOOLS_BATCHES):
+                ranges.range_push("tools.batch")
+                out = pipe.run()
+                ranges.range_pop("tools.batch")
+                ranges.range_push("tools.forward")
+                images, heat = model_inputs(out, num_cams)
+                loss = dense_focal_loss(model(images), heat)
+                ranges.range_pop("tools.forward")
+                ranges.range_push("tools.backward")
+                grads = torch.autograd.grad(loss, list(params.values()))
+                ranges.range_pop("tools.backward")
+        torch.cuda.synchronize()
+        launches = LAUNCHES["draw_gaussians"]
+    finally:
+        pipe.stop()
+        ranges.disable()
+    if launches != TOOLS_BATCHES + 1:
+        fail(f"tools: draw_gaussians launched {launches} times for {TOOLS_BATCHES + 1} batches")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    trace_path = os.path.join(BUILD_DIR, "tools_trace.json")
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        trace = trace_ranges_check(json.load(f))
+
+    # the last batch and its step's gradients, dumped, then compared
+    shutil.rmtree(TOOLS_DUMP, ignore_errors=True)
+    TensorDumper._reset_singleton()
+    td = TensorDumper()
+    td.enable(TOOLS_DUMP)
+
+    def collect(grads_):
+        td.push_range("batch")
+        td.add_tensor_data("pipeline", out, TensorDumper.Type.BINARY)
+        td.pop_range()
+        td.add_grad_data("centernet", params, TensorDumper.Type.BINARY)
+        td.set_gradients(list(grads_))
+
+    t0 = time.perf_counter()
+    collect(grads)
+    td.dump()
+    dump_s = time.perf_counter() - t0
+    dump_bytes = sum(os.path.getsize(os.path.join(TOOLS_DUMP, f)) for f in os.listdir(TOOLS_DUMP))
+    td.set_dump_is_compare(eps_numerical_data=TOOLS_EPS, compare_dir=TOOLS_DUMP)
+    # the first gradient's first entry moved to the last float32 within eps,
+    # then to the first one past it
+    name0 = next(iter(params))
+    x = np.float32(grads[0].reshape(-1)[0].item())
+    past = np.float32(x + np.float32(TOOLS_EPS))
+    while float(past) - float(x) <= TOOLS_EPS:
+        past = np.nextafter(past, np.float32(np.inf))
+    within = np.nextafter(past, np.float32(-np.inf))
+
+    def moved(value):
+        g = grads[0].clone(memory_format=torch.contiguous_format)
+        g.view(-1)[0] = float(value)
+        return (g, *grads[1:])
+
+    t0 = time.perf_counter()
+    for case in (grads, moved(within)):
+        td.set_dump_count(0)
+        collect(case)
+        try:
+            td.dump()
+        except ValueError as e:
+            fail(f"tools: TensorDumper reports the same data as different: {str(e)[:500]}")
+    compare_s = time.perf_counter() - t0
+    td.set_dump_count(0)
+    collect(moved(past))
+    try:
+        td.dump()
+        fail("tools: TensorDumper did not report a change of one ulp past eps_numerical_data")
+    except ValueError as e:
+        key = f"grads/centernet/{name0}"
+        if f"'{key}': 1 mismatching elements" not in str(e):
+            fail(f"tools: TensorDumper's report does not name {key}: {str(e)[:500]}")
+    finally:
+        td.disable()
+        TensorDumper._reset_singleton()
+    emit({"phase": "tools", "card": card,
+          "config": "bench_pipeline.build_pipeline() on the DCT wire (6 cams x batch 8, "
+                    "372x1024 -> 256x704), CenterNet(10, width 64) forward and gradients",
+          "batches": TOOLS_BATCHES, "trace": trace, "draw_gaussians_launches": launches,
+          "dump_bytes": dump_bytes, "dump_s": dump_s, "compare_s_two": compare_s,
+          "dump_entries": len(out) + len(params), "eps": TOOLS_EPS,
+          "ulp_past_eps_reported": True, "within_eps_clean": True,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -2619,6 +3241,11 @@ def main() -> int:
     loss_launches = matched_loss_phase(dev, card)
     serving_phase(dev, card)
     export_launches = export_phase(dev, card)
+    polyline_phase(dev, card)
+    lane_phase(dev, card)
+    bev_phase(dev, card)
+    elastic_phase(dev, card)
+    tools_launches = tools_phase(dev, card)
 
     kernels = []
     for k in KINDS:
@@ -2627,16 +3254,17 @@ def main() -> int:
         kernels.append({
             "name": ENTRY[k], "route": "cuda", "source": SOURCE, "replaces": replaces[k],
             "launches": (main_launches[ENTRY[k]] + det2d_launches + export_launches
-                         if k == "gaussians" else entry_launches[ENTRY[k]]),
+                         + tools_launches if k == "gaussians" else entry_launches[ENTRY[k]]),
             "max_abs_err": max(r["max_abs_err"], rx["max_abs_err"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "entry_ms": r["entry_ms"],
             "exact_ms": rx["ms"], "exact_plain_ms": rx["plain_ms"],
             "exact_bound_ms": rx["bound_ms"], "exact_entry_ms": rx["entry_ms"],
             "launches_from": (f"main path ({main_launches[ENTRY[k]]}), det2d "
-                              f"({det2d_launches}) and export ({export_launches}: the "
+                              f"({det2d_launches}), export ({export_launches}: the "
                               "pipeline's batches and the exported stage's call through the "
-                              "registered operator)" if k == "gaussians"
+                              f"registered operator) and tools ({tools_launches})"
+                              if k == "gaussians"
                               else "entry-point drive"),
         })
     m = matching["example_48x300"]

@@ -25,6 +25,7 @@ SUBPACKAGES = [
     "accvlab_tpu_torch.heatmap",
     "accvlab_tpu_torch.heatmap._ops",
     "accvlab_tpu_torch.hostcopy",
+    "accvlab_tpu_torch.lane_regression_training",
     "accvlab_tpu_torch.models",
     "accvlab_tpu_torch.models.checkpoint",
     "accvlab_tpu_torch.models.quantize",
@@ -33,13 +34,20 @@ SUBPACKAGES = [
     "accvlab_tpu_torch.object_detection_2d_pipeline",
     "accvlab_tpu_torch.pipeline",
     "accvlab_tpu_torch.pipeline.inputs",
+    "accvlab_tpu_torch.pipeline.inputs.elastic_sharded_input_callable",
+    "accvlab_tpu_torch.pipeline.internal_helpers",
     "accvlab_tpu_torch.pipeline.mini_parser",
     "accvlab_tpu_torch.pipeline.operators",
     "accvlab_tpu_torch.pipeline.processing_steps",
+    "accvlab_tpu_torch.pipeline.processing_steps.bev_bboxes_transformer_3d",
     "accvlab_tpu_torch.pipeline.structured_output_iterator",
     "accvlab_tpu_torch.pipeline.worker_pool",
+    "accvlab_tpu_torch.polyline",
     "accvlab_tpu_torch.ragged",
     "accvlab_tpu_torch.tools",
+    "accvlab_tpu_torch.tools.launch_counts",
+    "accvlab_tpu_torch.tools.tensor_dumper",
+    "accvlab_tpu_torch.tools.trace_range",
     "accvlab_tpu_torch.train_centernet_e2e",
     "accvlab_tpu_torch.train_petr_e2e",
 ]
@@ -151,7 +159,39 @@ def _entry_points():
         "load_inference": lambda **kw: _tiny_load(**kw),
         "InferenceServer.from_artifact": lambda **kw: _tiny_server(**kw),
         "detection_serving.main": lambda **kw: _tiny_serving_main(**kw),
+        "lane_regression_training.run": lambda **kw: _tiny_lane_run(**kw),
+        "TraceRangeWrapper.enable": lambda **kw: _tiny_trace_enable(**kw),
+        "polyline.interpolate": lambda **kw: _tiny_interpolate(**kw),
+        "get_as_data_node": lambda **kw: _tiny_data_node(**kw),
     }
+
+
+def _tiny_lane_run(**kw):
+    from accvlab_tpu_torch.lane_regression_training import run
+
+    return run(num_steps=1, batch_size=2, **kw)
+
+
+def _tiny_trace_enable(**kw):
+    from accvlab_tpu_torch.tools import TraceRangeWrapper
+
+    TraceRangeWrapper._reset_singleton()
+    try:
+        TraceRangeWrapper().enable(**kw)
+    finally:
+        TraceRangeWrapper._reset_singleton()
+
+
+def _tiny_interpolate(**kw):
+    from accvlab_tpu_torch.polyline import interpolate
+
+    return interpolate(np.zeros((1, 2, 2), np.float32), np.zeros((1, 1), np.float32), **kw)
+
+
+def _tiny_data_node(**kw):
+    from accvlab_tpu_torch.pipeline.internal_helpers import get_as_data_node
+
+    return get_as_data_node(np.zeros(2, np.float32), **kw)
 
 
 def _tiny_artifact():
@@ -249,7 +289,9 @@ def _tiny_pipeline(stream=False, **kw):
                                   "decompress_jpeg_dct",
                                   "object_detection_2d_pipeline.build_pipeline",
                                   "StructuredOutputIterator", "load_inference",
-                                  "InferenceServer.from_artifact", "detection_serving.main"])
+                                  "InferenceServer.from_artifact", "detection_serving.main",
+                                  "lane_regression_training.run", "TraceRangeWrapper.enable",
+                                  "polyline.interpolate", "get_as_data_node"])
 def test_entry_points_default_to_cuda(name):
     fn = _entry_points()[name]
     if torch.cuda.is_available():
