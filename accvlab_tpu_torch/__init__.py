@@ -28,7 +28,14 @@ CenterNet training it feeds):
   ``torch.export`` serving artifacts and the micro-batching
   ``InferenceServer`` (with :mod:`.detection_serving`);
 * :mod:`.bench_pipeline` and :mod:`.train_centernet_e2e` — bench.py's
-  pipeline, its ``measure_input_idle``, and the pipeline-fed train step.
+  pipeline, its ``measure_input_idle``, and the pipeline-fed train step;
+* :mod:`.parallel` — meshes of ranks (``DeviceMesh``), the global batch as
+  ``DTensor``\\ s sharded over ``data``, FSDP placements and the GPipe tick
+  loop (``pipeline_apply``, ``pipeline_loss``); with it the pipeline's
+  ``get_pipeline(mesh=)``, the sharded checkpoint restore and
+  :mod:`.preemptible_training`;
+* :mod:`.build_config` — the build helpers that the port's ``g++`` builds
+  take their flags from.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (or hands in CPU tensors); without a card they raise.
@@ -36,4 +43,5 @@ Entry points run on the CUDA device unless the caller passes
 
 __version__ = "0.1.0"
 
-__all__ = ["color", "heatmap", "hostcopy", "models", "pipeline", "ragged"]
+__all__ = ["build_config", "color", "heatmap", "hostcopy", "models", "parallel", "pipeline",
+           "ragged"]

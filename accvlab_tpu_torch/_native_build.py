@@ -1,6 +1,8 @@
 """Lazy builds of the port's native code into ``accvlab_tpu_torch/_build/``.
 
-* host C++ (``*.cpp``): ``g++ -O3 -std=c++17 -fPIC -march=native -shared``;
+* host C++ (``*.cpp``): ``g++`` with :func:`.build_config.select_cxx_flags`
+  (``-O3 -std=c++17 -fPIC -march=native`` unless ``ACCVLAB_CXXFLAGS``,
+  ``ACCVLAB_DEBUG`` or ``ACCVLAB_PORTABLE`` say otherwise) and ``-shared``;
   the JPEG decoder links libjpeg (:func:`libjpeg_link`);
 * CUDA (``*.cu``): ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
   -Xcompiler -fPIC`` into a shared library with a plain C interface, loaded
@@ -23,7 +25,6 @@ from typing import List, Optional
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
-CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-march=native"]
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -85,7 +86,9 @@ def _build(cmd_prefix: List[str], src: str, stem: str, flags: List[str],
 def build_host_lib(src: str, stem: str, link_args: Optional[List[str]] = None,
                    extra_flags: Optional[List[str]] = None) -> str:
     """Compile host C++ ``src`` into ``_build/<stem>-<hash>.so``; returns the path."""
-    return _build(["g++"], src, stem, CXX_FLAGS + ["-shared"] + list(extra_flags or []),
+    from .build_config import select_cxx_flags
+
+    return _build(["g++"], src, stem, select_cxx_flags() + ["-shared"] + list(extra_flags or []),
                   list(link_args or []))
 
 

@@ -40,6 +40,7 @@ import torch
 
 from ._device import resolve_device
 from .models.centernet import CenterNetDetector, adam, init_params
+from .parallel.mesh import data_shard_info
 from .pipeline import PipelineDefinition, native_jpeg
 from .pipeline.inputs import (
     MultiCameraJpegProvider,
@@ -140,7 +141,7 @@ def build_pipeline(batch_size: int = 8, device=None, num_threads: Optional[int] 
                    wire_pack: bool = True, echo_factor: int = 1,
                    cache_dir: Optional[str] = None, sampler: Optional[SamplerBase] = None,
                    sampler_iterations: int = 1024, decoder: str = "pil",
-                   grouping="dp16", worker_mode: str = "thread"):
+                   grouping="dp16", worker_mode: str = "thread", mesh=None):
     """bench.py's pipeline on the port (``device`` defaults to the card).
 
     ``wire``: ``"dct"`` (the default), ``"yuv"`` or ``"frames"`` (module
@@ -157,6 +158,9 @@ def build_pipeline(batch_size: int = 8, device=None, num_threads: Optional[int] 
     batches plus the prefetch ring's 2. ``worker_mode="process"`` runs the
     per-sample host phase (the input and, on the YUV wire, the decoder) in
     ``num_threads`` spawned workers; the wire packers stay in the producer.
+    ``mesh`` (:func:`.parallel.make_mesh`) delivers each batch as this rank's
+    shard of the global batch (``DTensor`` leaves, ``Shard(0)`` over
+    ``data``), its input read from this rank's shard of the dataset.
     """
     if wire not in NUM_UNIQUE:
         raise ValueError(f"wire must be one of {tuple(NUM_UNIQUE)}, got {wire!r}")
@@ -191,7 +195,9 @@ def build_pipeline(batch_size: int = 8, device=None, num_threads: Optional[int] 
                                                 hw=hw, num_cams=num_cams)
         steps = []
     if sampler is None:
-        inp = ShuffledShardedInputCallable(provider, batch_size=batch_size, shuffle=True)
+        shard_id, num_shards = (0, 1) if mesh is None else data_shard_info(mesh)
+        inp = ShuffledShardedInputCallable(provider, batch_size=batch_size, shuffle=True,
+                                           shard_id=shard_id, num_shards=num_shards)
     else:
         inp = SamplerInputCallable(provider, sampler, max_num_iterations=sampler_iterations,
                                    pre_fetch_queue_length=2)
@@ -202,8 +208,8 @@ def build_pipeline(batch_size: int = 8, device=None, num_threads: Optional[int] 
     definition = PipelineDefinition(inp, steps, check_data_format=False,
                                     copy_external_source_passthrough_outputs=False)
     return definition.get_pipeline(batch_size=batch_size, num_threads=num_threads,
-                                   device=device, seed=seed, echo_factor=echo_factor,
-                                   worker_mode=worker_mode)
+                                   device=device, seed=seed, worker_mode=worker_mode, mesh=mesh,
+                                   echo_factor=echo_factor)
 
 
 def model_inputs(out: Dict[str, torch.Tensor], num_cams: int):

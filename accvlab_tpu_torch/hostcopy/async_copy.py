@@ -7,10 +7,11 @@ contiguous chunks:
 
 * the tree is flattened (dict/list/tuple nesting preserved; opaque non-array
   leaves pass through; numpy scalars converted);
-* packable arrays (``<= pack_candidate_max_bytes``) go into raw-byte chunks
-  of ``<= max_packed_chunk_bytes`` at 16-byte aligned offsets — one chunk
-  group per dtype, or ONE group for every dtype with
-  ``merge_dtype_chunks=True``;
+* packable arrays (``<= pack_candidate_max_bytes``) go into chunks of
+  ``<= max_packed_chunk_bytes`` at aligned offsets (16 bytes by default),
+  as the JAX package plans them: one chunk group per dtype, or with
+  ``merge_dtype_chunks=True`` ONE raw-byte group for every integer and
+  float dtype (bool and complex keep their own);
 * each chunk is filled by the C++ packer (``csrc/pack.cpp``, GIL released)
   into pinned host memory and crosses with ONE ``non_blocking`` copy on a
   dedicated copy stream;
@@ -26,6 +27,7 @@ to ``device``. With ``device="cpu"`` the chunks are plain host tensors.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, List, Optional
@@ -38,8 +40,8 @@ from .native import parallel_pack
 
 _PACK_CANDIDATE_MAX_BYTES = 256 * 1024  # reference: make_pack_candidate, :481
 _DEFAULT_MAX_CHUNK = 32 * 1024 * 1024  # reference: max_packed_chunk_bytes
-# packed offsets are multiples of 16 bytes, so every itemsize divides each
-# view's offset (reference: :386, :510)
+# packed offsets are multiples of 16 bytes by default, so every itemsize
+# divides each view's offset (reference: :386, :510)
 _ALIGN = 16
 
 _background_pool: Optional[ThreadPoolExecutor] = None
@@ -100,11 +102,19 @@ def _is_packable_array(x) -> bool:
 
 
 def _flatten(data, leaves: list):
-    """Flatten dict/list/tuple nesting; returns a rebuild function."""
+    """Flatten dict/list/tuple nesting, dict keys in sorted order as
+    ``jax.tree_util`` does (the packing order); returns a rebuild function,
+    which keeps each dict's own key order."""
     if isinstance(data, dict):
-        keys = list(data.keys())
+        keys = sorted(data.keys())
         subs = [_flatten(data[k], leaves) for k in keys]
-        return lambda it: {k: s(it) for k, s in zip(keys, subs)}
+        order = list(data.keys())
+
+        def rebuild(it):
+            values = {k: s(it) for k, s in zip(keys, subs)}
+            return {k: values[k] for k in order}
+
+        return rebuild
     if isinstance(data, (list, tuple)):
         subs = [_flatten(v, leaves) for v in data]
         kind = type(data)
@@ -140,71 +150,108 @@ class AsyncCopyHandle:
         return result
 
 
-def _plan_and_copy(
+def _plan(
     leaves: List[Any],
-    device: torch.device,
+    pack_cpu_tensors: bool,
+    min_packed_alignment_bytes: int,
     max_packed_chunk_bytes: int,
     pack_candidate_max_bytes: Optional[int],
     merge_dtype_chunks: bool,
 ):
+    """The JAX package's packing plan (``async_copy.py:334-445``).
+
+    Returns ``(kinds, chunks)``: per leaf ``("tensor" | "opaque" | "zeros" |
+    "single" | "packed", array)``, and the chunks in the order JAX fills
+    them: the merged raw-byte chunks first (``dtype`` None), then one group
+    of chunks per dtype, each ``(dtype, [(leaf_index, array, byte_offset)],
+    total_bytes)``.
+    """
     pmax = (
         _PACK_CANDIDATE_MAX_BYTES if pack_candidate_max_bytes is None else pack_candidate_max_bytes
     )
-    cuda = device.type == "cuda"
-    out: List[Any] = [None] * len(leaves)
+    kinds: List[Any] = []
     groups: dict = {}  # dtype (or "" for the merged byte group) -> [(idx, arr)]
-    stream = _copy_stream(device) if cuda else None
     for i, leaf in enumerate(leaves):
         if isinstance(leaf, torch.Tensor):
-            out[i] = leaf.to(device, non_blocking=True)
+            kinds.append(("tensor", leaf))
             continue
         if not _is_packable_array(leaf):
-            out[i] = leaf  # opaque pass-through (reference: :120-138)
+            kinds.append(("opaque", leaf))  # pass-through (reference: :120-138)
             continue
         arr = canonical(np.asarray(leaf))
         if not arr.flags["C_CONTIGUOUS"]:  # (ascontiguousarray would make 0-d 1-d)
             arr = np.ascontiguousarray(arr)
-        if arr.nbytes == 0:
-            out[i] = torch.zeros(arr.shape, dtype=_TORCH_DTYPE[arr.dtype], device=device)
-        elif arr.nbytes <= pmax:
-            groups.setdefault("" if merge_dtype_chunks else arr.dtype, []).append((i, arr))
+        if arr.nbytes == 0 and pack_cpu_tensors:
+            kinds.append(("zeros", arr))
+        elif pack_cpu_tensors and arr.nbytes <= pmax:
+            # merged mode: every int/uint/float leaf rides the raw-byte group;
+            # bool and complex keep per-dtype chunks, as in JAX
+            key = "" if merge_dtype_chunks and arr.dtype.kind in "iuf" else arr.dtype
+            groups.setdefault(key, []).append((i, arr))
+            kinds.append(("packed", arr))
         else:
-            out[i] = torch.from_numpy(arr).to(device)
+            kinds.append(("single", arr))
 
-    dev_chunks = []
-
-    def flush(chunk):
-        offsets, pos = [], 0
-        for _, arr in chunk:
-            offsets.append(pos)
-            pos += -(-arr.nbytes // _ALIGN) * _ALIGN
-        staging = torch.empty((pos,), dtype=torch.uint8, pin_memory=cuda)
-        parallel_pack([a for _, a in chunk], offsets, staging.data_ptr())
-        if cuda:
-            with torch.cuda.stream(stream):
-                dev = staging.to(device, non_blocking=True)
-            dev_chunks.append(dev)
-        else:
-            dev = staging
-        for (leaf_i, arr), off in zip(chunk, offsets):
-            raw = dev[off:off + arr.nbytes]
-            out[leaf_i] = raw.view(_TORCH_DTYPE[arr.dtype]).reshape(arr.shape)
-
-    for items in groups.values():
+    chunks = []
+    byte_items = groups.pop("", None)
+    ordered = ([(None, byte_items)] if byte_items else []) + list(groups.items())
+    for dtype, items in ordered:
+        # raw bytes align to the requested bytes; a dtype group aligns to
+        # whole elements of at least that many bytes
+        align = (max(1, min_packed_alignment_bytes) if dtype is None else
+                 max(1, min_packed_alignment_bytes // dtype.itemsize) * dtype.itemsize)
         chunk: List = []
-        chunk_bytes = 0
+        pos = 0
         for leaf_i, arr in items:
-            n_aligned = -(-arr.nbytes // _ALIGN) * _ALIGN
-            if chunk and chunk_bytes + n_aligned > max_packed_chunk_bytes:
-                flush(chunk)
-                chunk, chunk_bytes = [], 0
-            chunk.append((leaf_i, arr))
-            chunk_bytes += n_aligned
+            n_aligned = -(-arr.nbytes // align) * align
+            if chunk and pos + n_aligned > max_packed_chunk_bytes:
+                chunks.append((dtype, chunk, pos))
+                chunk, pos = [], 0
+            chunk.append((leaf_i, arr, pos))
+            pos += n_aligned
         if chunk:
-            flush(chunk)
+            chunks.append((dtype, chunk, pos))
+    return kinds, chunks
+
+
+def _copy(kinds: List[Any], chunks: list, device: torch.device, use_pinned_staging: bool):
+    """Carry out :func:`_plan`'s plan: the leaves on ``device`` (packed
+    leaves as views of their chunk), the copy stream's event and the device
+    tensors that stream wrote (the chunks and any re-aligned leaves)."""
+    cuda = device.type == "cuda"
+    out: List[Any] = [None] * len(kinds)
+    for i, (kind, value) in enumerate(kinds):
+        if kind == "tensor":
+            out[i] = value.to(device, non_blocking=True)
+        elif kind == "opaque":
+            out[i] = value
+        elif kind == "zeros":
+            out[i] = torch.zeros(value.shape, dtype=_TORCH_DTYPE[value.dtype], device=device)
+        elif kind == "single":
+            out[i] = torch.from_numpy(value).to(device)
+
+    stream = _copy_stream(device) if cuda and chunks else None
+    dev_chunks = []
+    for _, items, total in chunks:
+        staging = torch.empty((total,), dtype=torch.uint8, pin_memory=cuda and use_pinned_staging)
+        parallel_pack([arr for _, arr, _ in items], [off for _, _, off in items],
+                      staging.data_ptr())
+        # the re-aligning copies below run on the copy stream too, after the
+        # chunk's copy and before the event that get() waits on
+        with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
+            dev = staging.to(device, non_blocking=True) if cuda else staging
+            if cuda:
+                dev_chunks.append(dev)
+            for leaf_i, arr, off in items:
+                raw = dev[off:off + arr.nbytes]
+                if off % arr.itemsize:  # an alignment below the itemsize: re-align by a copy
+                    raw = raw.clone()
+                    if cuda:
+                        dev_chunks.append(raw)
+                out[leaf_i] = raw.view(_TORCH_DTYPE[arr.dtype]).reshape(arr.shape)
 
     event = None
-    if cuda and dev_chunks:
+    if dev_chunks:
         event = torch.cuda.Event()
         event.record(stream)
     return out, event, dev_chunks
@@ -213,6 +260,9 @@ def _plan_and_copy(
 def start_copy(
     data: Any,
     device=None,
+    use_pinned_staging: bool = True,
+    pack_cpu_tensors: bool = True,
+    min_packed_alignment_bytes: int = _ALIGN,
     max_packed_chunk_bytes: int = _DEFAULT_MAX_CHUNK,
     use_background_thread: bool = True,
     pack_candidate_max_bytes: Optional[int] = None,
@@ -221,8 +271,12 @@ def start_copy(
     """Start an asynchronous packed copy of a nested structure to ``device``
     (default: the CUDA device; ``device="cpu"`` builds host tensors).
 
-    Parity: ``accvlab_tpu.hostcopy.start_copy``. Staging is pinned for a
-    CUDA target. Returns an :class:`AsyncCopyHandle` with ``ready()`` /
+    Parity: ``accvlab_tpu.hostcopy.start_copy``, the same packing plan.
+    ``use_pinned_staging=False`` stages a CUDA copy from pageable memory;
+    ``pack_cpu_tensors=False`` copies every host array on its own;
+    ``min_packed_alignment_bytes`` aligns the packed offsets (raw bytes in
+    the merged chunk, whole elements of at least that many bytes in a dtype
+    chunk). Returns an :class:`AsyncCopyHandle` with ``ready()`` /
     ``get()``.
     """
     dev = resolve_device(device)
@@ -232,9 +286,9 @@ def start_copy(
     rebuild = _flatten(data, leaves)
 
     def run():
-        out, event, chunks = _plan_and_copy(
-            leaves, dev, max_packed_chunk_bytes, pack_candidate_max_bytes, merge_dtype_chunks,
-        )
+        kinds, plan = _plan(leaves, pack_cpu_tensors, min_packed_alignment_bytes,
+                            max_packed_chunk_bytes, pack_candidate_max_bytes, merge_dtype_chunks)
+        out, event, chunks = _copy(kinds, plan, dev, use_pinned_staging)
         return rebuild(iter(out)), event, chunks
 
     if use_background_thread:

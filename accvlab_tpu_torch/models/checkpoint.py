@@ -23,8 +23,17 @@ contract:
 module's ``state_dict()``, an optimizer's ``state_dict()``, a dict of
 :class:`~.quantize.QuantizedTensor`\\ s); the file holds their leaves and
 their tree structure. :func:`restore_checkpoint` places each tensor where
-the template's tensor lies. The sharded restore onto a mesh waits for the
-port of ``parallel`` and raises.
+the template's tensor lies.
+
+Sharded state (:mod:`..parallel`): a ``DTensor`` leaf is saved as its full
+tensor, so a checkpoint is one file whatever the mesh that wrote it, and a
+``DTensor`` template leaf restores onto its own mesh and placements, as JAX
+restores onto a template's sharding (the saving layout does not constrain
+the restoring one). In a process group of several ranks a save is
+collective: every rank calls :func:`save_checkpoint` (each ``DTensor``
+gathers its full tensor on every rank), rank 0 alone writes, and every
+rank then waits for the commit: at the end of a synchronous save, in
+:func:`wait_for_checkpoints` (which every rank calls) for an asynchronous one.
 """
 
 from __future__ import annotations
@@ -38,7 +47,11 @@ import threading
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.utils._pytree as pytree
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from ..parallel.mesh import mesh_device
 
 _STATE_FILE = "state.pt"
 _STEP_DIR = re.compile(r"^step_\d{8}$")
@@ -57,14 +70,23 @@ def _executor() -> concurrent.futures.ThreadPoolExecutor:
     return _pool
 
 
+def _ranks() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 def wait_for_checkpoints() -> None:
     """Block until every in-flight asynchronous save has committed; raises
-    the error of a save that failed."""
+    the error of a save that failed. In a group of several ranks every rank
+    calls it and returns once rank 0's saves have committed."""
     with _lock:
         pending = list(_pending)
         _pending.clear()
-    for fut in pending:
-        fut.result()
+    try:
+        for fut in pending:
+            fut.result()
+    finally:
+        if _ranks() > 1:
+            dist.barrier()
 
 
 def _committed_steps(directory: str):
@@ -99,6 +121,8 @@ def _snapshot(tree, asynchronous: bool):
     leaves, spec = pytree.tree_flatten(tree)
     out, streams = [], set()
     for leaf in leaves:
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()  # a collective: every rank takes part
         if isinstance(leaf, torch.Tensor):
             leaf = leaf.detach()
             if leaf.is_cuda:
@@ -140,13 +164,18 @@ def save_checkpoint(
 
     ``asynchronous=True`` returns once the tensors are copied to host
     memory; the file is written on the background thread. ``keep=N`` keeps
-    the newest ``N`` committed checkpoints, this one included.
+    the newest ``N`` committed checkpoints, this one included. In a group of
+    several ranks every rank calls it and rank 0 writes (module docstring).
     """
     directory = os.path.abspath(directory)
-    os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"step_{step:08d}")
     payload = {"params": _snapshot(params, asynchronous),
                "opt_state": _snapshot(opt_state, asynchronous)}
+    if dist.is_initialized() and dist.get_rank() != 0:
+        if not asynchronous:
+            dist.barrier()
+        return path
+    os.makedirs(directory, exist_ok=True)
     # the sidecar is written at once: a stale one of a failed asynchronous
     # save is harmless, since only committed directories are listed
     with open(path + ".meta.json", "w") as f:
@@ -155,7 +184,11 @@ def save_checkpoint(
         with _lock:
             _pending.append(_executor().submit(_write, directory, path, payload, keep))
     else:
-        _write(directory, path, payload, keep)
+        try:
+            _write(directory, path, payload, keep)
+        finally:
+            if _ranks() > 1:
+                dist.barrier()
     return path
 
 
@@ -179,28 +212,30 @@ def _place(saved, template, what: str):
     placed = []
     for leaf, t in zip(leaves, t_leaves):
         if isinstance(t, torch.Tensor):
-            if hasattr(t, "placements"):
-                raise NotImplementedError(
-                    "a sharded restore (DTensor template) waits for the port of parallel")
             if not isinstance(leaf, torch.Tensor) or tuple(leaf.shape) != tuple(t.shape):
                 raise ValueError(f"{what}: saved {getattr(leaf, 'shape', leaf)} does not "
                                  f"fit the template's {tuple(t.shape)}")
-            leaf = leaf.to(t.device)
+            if isinstance(t, DTensor):
+                # every rank read the whole file: each keeps its own shard
+                # of the full tensor, no collective
+                leaf = distribute_tensor(leaf.to(mesh_device(t.device_mesh)), t.device_mesh,
+                                         t.placements, src_data_rank=None)
+            else:
+                leaf = leaf.to(t.device)
         placed.append(leaf)
     return pytree.tree_unflatten(placed, t_spec)
 
 
-def restore_checkpoint(path: str, template: Any, *, mesh=None) -> Tuple[Any, Any, Dict]:
+def restore_checkpoint(path: str, template: Any) -> Tuple[Any, Any, Dict]:
     """Restore ``(params, opt_state, meta)`` from a checkpoint directory.
 
     ``template``: ``{"params": ..., "opt_state": ...}`` of the structure that
     was saved; each restored tensor lies where the template's tensor lies
-    (a template of ``None`` restores that part as saved, on the CPU).
-    ``mesh=`` and DTensor template leaves (a sharded restore) raise
-    ``NotImplementedError`` until ``parallel`` is ported.
+    (a template of ``None`` restores that part as saved, on the CPU). A
+    ``DTensor`` template leaf (its values unused: ``torch.empty`` or the
+    meta device will do) restores onto its mesh and placements, whatever
+    the layout that saved it.
     """
-    if mesh is not None:
-        raise NotImplementedError("a sharded restore (mesh=) waits for the port of parallel")
     _schema()
     path = os.path.abspath(path)
     payload = torch.load(os.path.join(path, _STATE_FILE), map_location="cpu",

@@ -34,7 +34,8 @@ file with :func:`load_inference` and calls it.
 The loader imports ``_device`` and ``_draws`` (torch and numpy alone) and,
 where the header names them, the modules of registered operators and pytree
 types; never ``models.centernet`` nor ``pipeline``. Sharded artifacts
-(``mesh=``) wait for the port of ``parallel``. An artifact of the JAX
+(``mesh=``) wait for the sharded serving side of ``parallel`` (ROADMAP.md
+§1 item 2). An artifact of the JAX
 package (StableHLO, ``jax_version`` in its header) is refused.
 
 Typical flow::
@@ -263,7 +264,8 @@ def export_program(fn: Callable, example_args: Tuple, *, batch_polymorphic: bool
     """``fn`` traced at ``example_args`` as an ``ExportedProgram`` (see
     :func:`export_inference`)."""
     if mesh is not None:
-        raise NotImplementedError("sharded export (mesh=) waits for the port of parallel")
+        raise NotImplementedError("sharded export (mesh=) waits for the sharded serving side "
+                                  "of parallel (ROADMAP.md §1 item 2)")
     args = tuple(_as_tensors(tuple(example_args)))
     dynamic = _batch_dims(args) if batch_polymorphic else None
     with torch.no_grad():
@@ -293,7 +295,7 @@ def export_inference(fn: Callable, example_args: Tuple, *, batch_polymorphic: bo
     ``batch_polymorphic=True`` gives every input leaf one shared symbolic
     leading dimension (the example's leading sizes must agree and be at least
     2). ``mesh=`` (a sharded export) raises ``NotImplementedError`` until
-    ``parallel`` is ported.
+    the sharded serving side of ``parallel`` (ROADMAP.md §1 item 2).
     """
     ep = export_program(fn, example_args, batch_polymorphic=batch_polymorphic, mesh=mesh)
     name = getattr(fn, "__qualname__", type(fn).__name__)
@@ -375,11 +377,12 @@ def load_inference(path_or_bytes, *, device=None, mesh=None) -> LoadedInference:
     """Load a serving artifact onto ``device`` (default the card; raises
     without one unless ``device="cpu"``). No model or pipeline code is
     imported. A JAX package artifact raises ``ValueError``; ``mesh=`` raises
-    ``NotImplementedError`` until ``parallel`` is ported."""
+    ``NotImplementedError`` until the sharded serving side of ``parallel``."""
     from torch.export.passes import move_to_device_pass
 
     if mesh is not None:
-        raise NotImplementedError("sharded serving (mesh=) waits for the port of parallel")
+        raise NotImplementedError("sharded serving (mesh=) waits for the sharded serving side "
+                                  "of parallel (ROADMAP.md §1 item 2)")
     dev = resolve_device(device)
     header, payload = _unpack(_read_bytes(path_or_bytes))
     if header.get("program_format") != PROGRAM_FORMAT:
@@ -391,7 +394,8 @@ def load_inference(path_or_bytes, *, device=None, mesh=None) -> LoadedInference:
             )
         raise ValueError(f"unknown program format {header.get('program_format')!r}")
     if int(header.get("nr_devices", 1)) > 1:
-        raise NotImplementedError("sharded artifacts wait for the port of parallel")
+        raise NotImplementedError("sharded artifacts wait for the sharded serving side of "
+                                  "parallel (ROADMAP.md §1 item 2)")
     _import_for(header.get("custom_ops", []), CUSTOM_OP_MODULES, "operator")
     _import_for(header.get("pytree_types", []), PYTREE_TYPE_MODULES, "pytree type")
     program = torch.export.load(io.BytesIO(payload))

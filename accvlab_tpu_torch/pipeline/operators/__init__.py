@@ -21,15 +21,19 @@ from .ops import (
     replace_nans,
 )
 from .point_ops import (
+    add_post_transform_to_projection_matrix,
     apply_clipping_and_get_with_clipping_info,
+    apply_transform_to_points,
     get_is_active,
     pad_to_common_size,
     transform_points,
 )
 
 __all__ = [
+    "add_post_transform_to_projection_matrix",
     "apply_clipping_and_get_with_clipping_info",
     "apply_matrix",
+    "apply_transform_to_points",
     "check_bbox_visibiity",
     "check_bbox_visibility",
     "check_minimum_bbox_size",

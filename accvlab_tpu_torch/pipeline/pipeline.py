@@ -36,7 +36,12 @@ prints that program, ``export_device_program`` writes it as a serving
 artifact (:mod:`..models.serving`) that reproduces the stage without
 pipeline code.
 
-Not ported yet (ROADMAP.md): mesh sharding.
+On a mesh (``get_pipeline(mesh=)``, a :mod:`..parallel` ``DeviceMesh``) each
+rank runs this executor on its own input shard: the packed transfer goes to
+the rank's own device, the device stage runs on local tensors (the hand
+kernels take plain tensors), and every delivered leaf is the rank's shard
+of the global batch, a ``DTensor`` that is ``Shard(0)`` over ``data``
+(:func:`..parallel.shard_batch`).
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ import torch
 from torch import nn
 
 from .._device import F32MatmulScope, resolve_device
+from ..parallel.mesh import mesh_device, shard_batch
 from .dtypes import DType
 from .inputs.base import CallableBase, IterableBase, SampleInfo
 from .processing_steps.pipeline_step_base import BatchLevelStepBase, PipelineStepBase
@@ -208,12 +214,19 @@ class PipelineDefinition:
         device=None,
         seed: int = 0,
         prefetch_queue_depth: Optional[int] = None,
-        echo_factor: int = 1,
         worker_mode: str = "thread",
+        mesh=None,
+        echo_factor: int = 1,
     ) -> "TorchPipeline":
         """Build the executable pipeline. ``device`` defaults to the CUDA
-        device (raises without a card); ``device="cpu"`` runs every step's
-        plain PyTorch version on the CPU.
+        device (raises without a card), or to the device of ``mesh``;
+        ``device="cpu"`` runs every step's plain PyTorch version on the CPU.
+
+        ``mesh``: a ``DeviceMesh`` with a ``data`` axis
+        (:func:`..parallel.make_mesh`). Every delivered leaf is then a
+        ``DTensor`` sharded over ``data``, whose local part is this rank's
+        batch: each rank runs its own pipeline on its data coordinate's
+        input shard (:func:`..parallel.mesh.data_shard_info`).
 
         ``worker_mode``: ``"thread"`` (the default; host steps that release
         the interpreter lock) or ``"process"`` (``num_threads`` spawned
@@ -237,9 +250,13 @@ class PipelineDefinition:
             ),
             parallel=self._use_parallel,
             check_data_format=self._check_data_format,
-            echo_factor=echo_factor,
             worker_mode=worker_mode,
+            mesh=mesh,
+            echo_factor=echo_factor,
         )
+
+    # the JAX package's alias for call sites written against the reference name
+    get_dali_pipeline = get_pipeline
 
 
 class TorchPipeline:
@@ -260,11 +277,17 @@ class TorchPipeline:
         prefetch_queue_depth: int,
         parallel: bool,
         check_data_format: bool,
-        echo_factor: int = 1,
         worker_mode: str = "thread",
+        mesh=None,
+        echo_factor: int = 1,
     ):
         if worker_mode not in ("thread", "process"):
             raise ValueError(f"worker_mode must be 'thread' or 'process', got {worker_mode!r}")
+        self._mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device).type != mesh.device_type:
+                raise ValueError(f"device={device!r} is not the mesh's {mesh.device_type!r}")
+            device = mesh_device(mesh)
         self._device = resolve_device(device)
         if self._device.type == "cuda" and self._device.index is None:
             self._device = torch.device("cuda", torch.cuda.current_device())
@@ -610,13 +633,17 @@ class TorchPipeline:
         the stage's random draws from it. It returns the flat output leaves
         (``pipeline_output_fields``), bit for bit those of
         :meth:`run_device_stage` on the same leaves. Raises as
-        :meth:`device_program_text`.
+        :meth:`device_program_text`, and ``NotImplementedError`` on a mesh
+        pipeline.
 
         Returns the header; the bytes go to ``path`` (atomic write) when it
         is given, else they are returned instead of the header.
         """
         from ..models import serving as _serving
 
+        if self._mesh is not None:
+            raise NotImplementedError("the device program of a mesh pipeline waits for the "
+                                      "sharded serving side (ROADMAP.md §1 item 2)")
         ep, schedule = self._export_device_stage()
         header = _serving._header(ep, False, "device_stage", "highest")
         header["draw_schedule"] = list(schedule)
@@ -723,6 +750,8 @@ class TorchPipeline:
             else:
                 self._last_dispatch_bytes = 0
             out = self.run_device_stage(batch, batch_idx, echo_i)
+            if self._mesh is not None:
+                out = shard_batch(list(out), self._mesh)
         except Exception:
             self._exhausted = True
             self._echo_item = None

@@ -7,8 +7,8 @@ objects exactly as there — one transform per sample, now a ``(B, 2, 3)``
 tensor — then applied on the device:
 
 * images via :func:`~accvlab_tpu_torch.pipeline.operators.warp_affine`,
-* point sets via ``transform_points``,
-* projection matrices via left-composition of the homogeneous transform,
+* point sets via ``apply_transform_to_points``,
+* projection matrices via ``add_post_transform_to_projection_matrix``,
 * ``image_hw`` fields updated to the output size.
 
 Composition convention (DALI's): a step combines as ``new @ prior`` and the
@@ -42,22 +42,19 @@ import torch
 from ._common import as_name_list, batch_tensor
 from .pipeline_step_base import PipelineStepBase
 from ..operators.image_ops import warp_affine
-from ..operators.point_ops import transform_points
+from ..operators.point_ops import (
+    add_post_transform_to_projection_matrix,
+    apply_transform_to_points,
+    homogeneous,
+)
 from ..sample_data_group import SampleDataGroup
 
 Name = Union[str, int]
 
 
-def _homogeneous(affine: torch.Tensor) -> torch.Tensor:
-    """``(B, 2, 3)`` affines as ``(B, 3, 3)`` with the row ``0 0 1``."""
-    bottom = torch.zeros_like(affine[:, :1, :])
-    bottom[..., 2] = 1.0
-    return torch.cat([affine, bottom], dim=-2)
-
-
 def _compose(new: torch.Tensor, prior: torch.Tensor) -> torch.Tensor:
     """``new @ [prior; 0 0 1]`` for ``(B, 2, 3)`` affines, summed in dot order."""
-    p3 = _homogeneous(prior)
+    p3 = homogeneous(prior)
     return (
         new[:, :, 0, None] * p3[:, None, 0, :]
         + new[:, :, 1, None] * p3[:, None, 1, :]
@@ -503,15 +500,11 @@ class AffineTransformer(PipelineStepBase):
         for name in self._projection_matrix_field_names:
             for pp in data.find_all_occurrences(name):
                 parent = data.get_parent_of_path(pp)
-                proj = parent[name].to(torch.float32)
-                parent[name] = torch.matmul(_homogeneous(transform), proj)
+                parent[name] = add_post_transform_to_projection_matrix(parent[name], transform)
         for name in self._point_field_names:
             for pp in data.find_all_occurrences(name):
                 parent = data.get_parent_of_path(pp)
-                pts = parent[name].to(torch.float32)
-                pairs = pts.reshape(*pts.shape[:-1], -1, 2)  # rows hold (x, y) pairs
-                moved = transform_points(pairs.flatten(1, -2), transform).reshape(pairs.shape)
-                parent[name] = moved.reshape(pts.shape)
+                parent[name] = apply_transform_to_points(parent[name], transform)
         if not self._extract_size_from_images:
             for name in self._image_hw_field_names:
                 for sp in data.find_all_occurrences(name):

@@ -51,6 +51,10 @@ class ImageDecoder(PipelineStepBase):
     edge-replicated by one row or column to even before the chroma is
     subsampled (PIL path).
 
+    ``use_device_mixed`` and ``hw_decoder_load`` (DALI's mixed nvJPEG
+    decode) are taken in the JAX package's positions and ignored, as it
+    ignores them: decoding runs on the host.
+
     ``decoder``: ``"pil"``, ``"native"`` or ``"auto"`` (module docstring).
     ``"native"`` raises at construction when the library does not build.
     ``decoded_by`` counts the images each decoder took.
@@ -61,6 +65,8 @@ class ImageDecoder(PipelineStepBase):
     def __init__(
         self,
         image_name: Union[str, int],
+        use_device_mixed: bool = False,
+        hw_decoder_load: float = 0.65,
         as_bgr: bool = False,
         decode_scale_hint_hw=None,
         decode_resize_hw=None,
@@ -103,6 +109,7 @@ class ImageDecoder(PipelineStepBase):
             if not native_jpeg.available():
                 raise RuntimeError(f"decoder='native': {native_jpeg.build_error()}")
         self._decoder = decoder
+        del use_device_mixed, hw_decoder_load  # the host decodes
         #: images decoded by each decoder since construction
         self.decoded_by = {"native": 0, "pil": 0}
 

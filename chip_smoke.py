@@ -203,13 +203,25 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              closing after the device work it launched; TensorDumper dumps the
              last batch and its CenterNet gradients, compares them clean, a
              value within eps clean, and reports one moved one ulp past eps;
-22. the {"kernels": [...]} line, the nvidia-smi line, and last the result
+22. mesh   — the main path on a mesh: make_mesh() (one rank over NCCL, a
+             (1, 1) mesh; host_shard_info, shard_batch and shard_like_batch
+             on the main path's leaves), bench.py's pipeline at full width on
+             the DCT wire through get_pipeline(mesh=): MESH_CHECK_BATCHES
+             batches whose every leaf is a DTensor sharded over data, its full
+             tensor bitwise the unsharded pipeline's batch; two pairs of
+             MESH_BATCHES-batch windows in turns with unsharded ones
+             (frames/s, the median ratio, beside main's; shard_batch's ms per
+             batch); pipeline_loss and pipeline_apply on (data 1,
+             pipe 1) against the sequential application (MESH_PP_RTOL); the
+             preemptible trainer's resume, bitwise; its checkpoint and a
+             sharded one restored onto DTensor templates, bitwise;
+23. the {"kernels": [...]} line, the nvidia-smi line, and last the result
    line {"ok": true, "device": {...}}.
 
 The pipeline phases (main, main_yuv, main_frames, echo, det2d, workers, train, input_idle,
-petr, export, tools) each count the rasterizer's launches from 0 and fail unless it ran once
-per delivered pipeline batch; the kernels line's draw_gaussians launches are main's, det2d's,
-export's and tools'. The encoded JPEGs are kept in build/bench_cache (bench.py's
+petr, export, tools, mesh) each count the rasterizer's launches from 0 and fail unless it ran
+once per delivered pipeline batch; the kernels line's draw_gaussians launches are main's,
+det2d's, export's, tools' and mesh's. The encoded JPEGs are kept in build/bench_cache (bench.py's
 cache format) for the phases after the first.
 
 Exits non-zero without a result when torch.cuda.is_available() is false.
@@ -783,7 +795,7 @@ def main_phase(dev, card: str, wire: str = "dct"):
         "setup_s": setup_s, **extra,
         "config": config + ", batch 8, heatmap 10x64x176, T=32",
     })
-    return main_launches
+    return main_launches, float(np.median(fps))
 
 
 def main_frames_phase(dev, card: str):
@@ -3193,6 +3205,212 @@ def tools_phase(dev, card: str) -> int:
     return launches
 
 
+# two pairs of windows in turns, unsharded and mesh, then mesh and
+# unsharded, each on its own pipeline after MESH_CHECK_BATCHES batches
+# (main's 3 x 100 cut in depth; widths not cut)
+MESH_BATCHES = 10
+MESH_CHECK_BATCHES = 3  # delivered by the first pipeline of each kind and compared bitwise
+MESH_WRAP_CALLS = 50  # shard_batch of one delivered batch, timed (median)
+# __graft_entry__.py's pipeline-parallel stanza at one stage and one data
+# shard: dim 32, 6 microbatches of 2
+MESH_PP = {"dim": 32, "micro": 6, "mb": 2}
+# pipeline_loss and pipeline_apply against the plain sequential application
+# on the card: the same float32 operations in the same order (expected
+# bitwise), held to this tolerance relative to the largest magnitude
+MESH_PP_RTOL = 1e-6
+
+
+def mesh_pipeline_parallel(dev) -> dict:
+    """pipeline_loss and pipeline_apply on a (data 1, pipe 1) mesh against
+    the plain sequential application of the one stage, on the card."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from accvlab_tpu_torch.parallel import make_mesh_nd, pipeline_apply, pipeline_loss
+
+    mesh = make_mesh_nd((1, 1), ("data", "pipe"))
+    dim, n_micro, mb = MESH_PP["dim"], MESH_PP["micro"], MESH_PP["mb"]
+    gen = torch.Generator().manual_seed(2)
+    host = {"w": torch.randn(1, dim, dim, generator=gen) * 0.2,
+            "b": torch.randn(1, dim, generator=gen) * 0.05,
+            "xs": torch.randn(n_micro, mb, dim, generator=gen),
+            "tgts": torch.randn(n_micro, mb, dim, generator=gen)}
+    xs, tgts = host["xs"].to(dev), host["tgts"].to(dev)
+
+    def stage(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    def mse(y, t):
+        return ((y - t) ** 2).mean()
+
+    params = {k: distribute_tensor(host[k].to(dev), mesh, (Replicate(), Shard(0)))
+              .requires_grad_() for k in ("w", "b")}
+    loss = pipeline_loss(params, xs, tgts, stage, mse, mesh=mesh, data_spec=("data",))
+    loss.backward()
+    grads = {k: p.grad.to_local()[0] for k, p in params.items()}
+    with torch.no_grad():
+        outs = pipeline_apply(params, xs, stage, mesh=mesh)
+
+    plain = {k: host[k][0].to(dev).requires_grad_() for k in ("w", "b")}
+    want = torch.stack([mse(stage(plain, xs[i]), tgts[i]) for i in range(n_micro)]).sum() / n_micro
+    want.backward()
+    with torch.no_grad():
+        want_outs = torch.stack([stage(plain, xs[i]) for i in range(n_micro)])
+    pairs = {"loss": (loss.detach(), want.detach()), "outputs": (outs, want_outs),
+             **{f"grad_{k}": (grads[k], plain[k].grad) for k in grads}}
+    res = {}
+    for name, (got, ref) in pairs.items():
+        if not (got.is_cuda and bool(torch.isfinite(got).all())):
+            fail(f"mesh: pipeline {name} is not finite on the card")
+        err = float((got - ref).abs().max())
+        if err > MESH_PP_RTOL * float(ref.abs().max()):
+            fail(f"mesh: pipeline {name} differs from the sequential application by {err}")
+        res[name] = {"max_abs_err": err, "bitwise": bool(torch.equal(got, ref))}
+    return res
+
+
+def mesh_phase(dev, card: str, main_fps: float) -> int:
+    """bench.py's main path on a one-rank NCCL mesh (get_pipeline(mesh=)):
+    every leaf a DTensor whose full tensor is bitwise the unsharded
+    pipeline's batch; frames/s in windows that alternate with unsharded
+    windows of the same depth, beside main's; pipeline_loss and
+    pipeline_apply on (data 1, pipe 1); the preemptible trainer's bitwise
+    resume; checkpoints restored onto DTensor templates. Returns the
+    rasterizer's launches on the mesh main path."""
+    import shutil
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from accvlab_tpu_torch.bench_pipeline import build_pipeline
+    from accvlab_tpu_torch.heatmap import LAUNCHES, reset_launch_counts
+    from accvlab_tpu_torch.models.checkpoint import (
+        latest_checkpoint,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from accvlab_tpu_torch.parallel import host_shard_info, make_mesh, shard_batch
+    from accvlab_tpu_torch.parallel import shard_like_batch
+    from accvlab_tpu_torch.preemptible_training import elastic_restore
+    from accvlab_tpu_torch.preemptible_training import main as preemptible_main
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh()
+    backend = dist.get_backend()
+    if (tuple(mesh.shape), host_shard_info(mesh), backend) != ((1, 1), (0, 1), "nccl"):
+        fail(f"mesh: make_mesh() gave {tuple(mesh.shape)}, host_shard_info "
+             f"{host_shard_info(mesh)}, backend {backend}")
+    kw = dict(batch_size=WIDTH["batch"], device=dev, cache_dir=CACHE_DIR)
+    fps = {"unsharded": [], "mesh": []}
+
+    def window(kind, first=None):
+        """A fresh pipeline of ``kind``: MESH_CHECK_BATCHES batches (each
+        passed to ``first``), then a timed window; returns its last batch."""
+        pipe = build_pipeline(mesh=mesh if kind == "mesh" else None, **kw)
+        try:
+            for i in range(MESH_CHECK_BATCHES):
+                out = pipe.run()
+                if first is not None:
+                    first(i, out)
+            s, out = timed_windows(pipe, 1, MESH_BATCHES)
+        finally:
+            pipe.stop()
+        fps[kind].append(MESH_BATCHES * WIDTH["batch"] * WIDTH["cams"] / s[0])
+        return out
+
+    def check(i, out):
+        for name, want in ref[i].items():
+            leaf = out[name]
+            if not isinstance(leaf, DTensor) or leaf.placements != (Shard(0), Replicate()):
+                fail(f"mesh: {name} is not a DTensor sharded over data")
+            if not torch.equal(leaf.full_tensor(), want):
+                fail(f"mesh: batch {i}'s {name} differs from the unsharded pipeline's")
+
+    # pair 0, unsharded first: its first batches are the reference
+    ref = []
+    window("unsharded", lambda i, out: ref.append({k: v.clone() for k, v in out.items()}))
+    # shard_batch and shard_like_batch on the main path's leaves: no copy
+    for name, leaf in ref[0].items():
+        sharded = shard_batch({name: leaf}, mesh)[name]
+        if (sharded.placements != shard_like_batch(mesh, leaf.ndim)
+                or sharded.to_local().data_ptr() != leaf.data_ptr()
+                or not torch.equal(sharded.full_tensor(), leaf)):
+            fail(f"mesh: shard_batch of {name} is not the leaf itself, Shard(0) over data")
+    leaves = list(ref[0].values())
+    wrap_s = []
+    for _ in range(MESH_WRAP_CALLS):
+        t0 = time.perf_counter()
+        shard_batch(leaves, mesh)
+        wrap_s.append(time.perf_counter() - t0)
+
+    # the mesh main path: pair 0's mesh window (its first batches checked),
+    # then pair 1's, mesh first
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    window("mesh", check)
+    out = window("mesh")
+    launches = LAUNCHES["draw_gaussians"]
+    delivered = 2 * (MESH_CHECK_BATCHES + MESH_BATCHES)
+    if launches != delivered:
+        fail(f"mesh: draw_gaussians launched {launches} times for {delivered} batches")
+    if not all(isinstance(v, DTensor) for v in out.values()):
+        fail("mesh: a leaf of the last window's last batch is not a DTensor")
+    check_outputs({k: v.to_local() for k, v in out.items()}, WIDTH["cams"], WIDTH["batch"])
+    window("unsharded")
+
+    t0 = time.perf_counter()
+    pp = mesh_pipeline_parallel(dev)
+    pp_s = time.perf_counter() - t0
+
+    # the preemptible trainer on the one-rank mesh (main asserts the
+    # bitwise resume), then its step-3 checkpoint restored onto DTensors
+    workdir = os.path.join(os.path.dirname(CACHE_DIR), "mesh_checkpoints")
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        res = preemptible_main(workdir=os.path.join(workdir, "preempt"))
+        restored, meta = elastic_restore(mesh, latest_checkpoint(os.path.join(workdir, "preempt")))
+        if meta["step"] != 3 or sorted(restored) != sorted(res["pre_params"]):
+            fail(f"mesh: the trainer's checkpoint restored step {meta['step']}")
+        for k, v in res["pre_params"].items():
+            if restored[k].placements != (Replicate(), Replicate()) or not torch.equal(
+                    restored[k].full_tensor(), v):
+                fail(f"mesh: {k} restored onto the mesh differs from the saved parameter")
+        w = torch.arange(8 * 6, dtype=torch.float32, device=dev).reshape(8, 6)
+        path = save_checkpoint(os.path.join(workdir, "sharded"), 1, {"w": w}, {})
+        template = DTensor.from_local(torch.empty((8, 6), device="meta"), mesh,
+                                      (Shard(0), Replicate()), shape=w.shape, stride=w.stride())
+        rp, _, _ = restore_checkpoint(path, {"params": {"w": template}, "opt_state": None})
+        if (rp["w"].placements != (Shard(0), Replicate()) or not rp["w"].to_local().is_cuda
+                or not torch.equal(rp["w"].full_tensor(), w)):
+            fail("mesh: a checkpoint restored onto a Shard(0) template is not bitwise")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    trainer_s = time.perf_counter() - t0
+    dist.destroy_process_group()
+
+    ratios = [m / u for m, u in zip(fps["mesh"], fps["unsharded"])]
+    spread = [min(fps["unsharded"]), max(fps["unsharded"])]
+    emit({"phase": "mesh", "card": card, "mesh": "make_mesh(): (data 1, model 1), NCCL",
+          "config": "bench.py's main path, DCT wire, 6 cams x 372x1024 -> 256x704, batch 8, "
+                    f"through get_pipeline(mesh=); 2 pairs of {MESH_BATCHES}-batch "
+                    "windows in turns (unsharded, mesh, mesh, unsharded), each on a fresh "
+                    f"pipeline after {MESH_CHECK_BATCHES} batches, the first mesh pipeline's "
+                    "checked bitwise against the first unsharded one's",
+          "frames_per_s": fps["mesh"], "unsharded_frames_per_s": fps["unsharded"],
+          "mesh_over_unsharded_per_pair": ratios,
+          "mesh_over_unsharded": float(np.median(ratios)),
+          "mesh_median_inside_unsharded_spread":
+              spread[0] <= float(np.median(fps["mesh"])) <= spread[1],
+          "shard_batch_ms_per_batch": float(np.median(wrap_s)) * 1e3,
+          "shard_batch_leaves": len(leaves), "main_frames_per_s": main_fps,
+          "draw_gaussians_launches": launches, "pipeline_parallel": pp,
+          "pipeline_parallel_s": pp_s,
+          "preemptible": {"losses": [float(x) for x in res["ref_losses"]],
+                          "resumed_bitwise": True, "restored_onto_mesh_bitwise": True},
+          "trainer_and_restore_s": trainer_s, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -3222,7 +3440,7 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     replaces, results, entry_launches, n_golden = kernel_phase(dev, flush)
     emit({"phase": "goldens", "bitwise_groups": n_golden})
-    main_launches = main_phase(dev, card)
+    main_launches, main_fps = main_phase(dev, card)
     main_phase(dev, card, wire="yuv")
     main_frames_phase(dev, card)
     dct_wire_phase(dev, card)
@@ -3246,6 +3464,7 @@ def main() -> int:
     bev_phase(dev, card)
     elastic_phase(dev, card)
     tools_launches = tools_phase(dev, card)
+    mesh_launches = mesh_phase(dev, card, main_fps)
 
     kernels = []
     for k in KINDS:
@@ -3254,7 +3473,8 @@ def main() -> int:
         kernels.append({
             "name": ENTRY[k], "route": "cuda", "source": SOURCE, "replaces": replaces[k],
             "launches": (main_launches[ENTRY[k]] + det2d_launches + export_launches
-                         + tools_launches if k == "gaussians" else entry_launches[ENTRY[k]]),
+                         + tools_launches + mesh_launches if k == "gaussians"
+                         else entry_launches[ENTRY[k]]),
             "max_abs_err": max(r["max_abs_err"], rx["max_abs_err"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "entry_ms": r["entry_ms"],
@@ -3263,7 +3483,8 @@ def main() -> int:
             "launches_from": (f"main path ({main_launches[ENTRY[k]]}), det2d "
                               f"({det2d_launches}), export ({export_launches}: the "
                               "pipeline's batches and the exported stage's call through the "
-                              f"registered operator) and tools ({tools_launches})"
+                              f"registered operator), tools ({tools_launches}) and the "
+                              f"main path on a mesh ({mesh_launches})"
                               if k == "gaussians"
                               else "entry-point drive"),
         })

@@ -2,8 +2,9 @@
 unsharded cases of ``tests/test_checkpoint_async.py`` and the proof
 obligation of ``examples/preemptible_training.py``.
 
-The sharded restores onto a mesh wait for the port of ``parallel``
-(ROADMAP.md); asking for one raises. The preempt-and-resume case trains the
+The sharded restores: a ``DTensor`` template on a mesh of one gloo rank,
+and ``tests/test_checkpoint_async.py``'s sharded cases on four gloo ranks
+(``tests/torch_mesh_worker.py``). The preempt-and-resume case trains the
 port's CenterNet on batches of the port's pipeline (random augmentation on
 the device included), checkpoints every 2 steps with ``pipe.get_state()``,
 "preempts" after step 3 (its progress is lost), rebuilds model, optimizer
@@ -82,11 +83,42 @@ def test_async_retention_counts_the_save_being_written(tmp_path):
         "step_00000002", "step_00000003"]
 
 
-def test_sharded_restore_waits_for_parallel(tmp_path):
+@pytest.fixture
+def cpu_group():
+    """The in-process group of one gloo rank that ``make_mesh`` makes,
+    destroyed after the test."""
+    import torch.distributed as dist
+
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_sharded_restore_waits_for_parallel(tmp_path, cpu_group):
+    """(Named when the sharded restore waited for ``parallel``.) A
+    ``DTensor`` template leaf restores onto its own mesh and placements,
+    bitwise; a template on the meta device will do."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    from accvlab_tpu_torch.parallel import make_mesh
+
     params, opt = _state()
     path = save_checkpoint(str(tmp_path), 1, params, opt)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        restore_checkpoint(path, {"params": params, "opt_state": opt}, mesh=object())
+    mesh = make_mesh(device_type="cpu")
+    template = {"params": {"w": distribute_tensor(torch.empty(4, 3), mesh, (Shard(0), Replicate())),
+                           "b": params["b"]},
+                "opt_state": {"mu": DTensor.from_local(torch.empty((4, 3), device="meta"), mesh,
+                                                       (Replicate(), Replicate()))}}
+    rp, ro, _ = restore_checkpoint(path, template)
+    assert isinstance(rp["w"], DTensor) and rp["w"].placements == (Shard(0), Replicate())
+    assert ro["mu"].placements == (Replicate(), Replicate()) and ro["mu"].device.type == "cpu"
+    assert torch.equal(rp["w"].full_tensor(), params["w"])
+    assert torch.equal(ro["mu"].full_tensor(), opt["mu"])
+    assert not isinstance(rp["b"], DTensor) and torch.equal(rp["b"], params["b"])
+    # a DTensor is saved as its full tensor: the file restores without a mesh
+    path = save_checkpoint(str(tmp_path), 2, rp, ro)
+    rp2, _, _ = restore_checkpoint(path, {"params": params, "opt_state": opt})
+    assert torch.equal(rp2["w"], params["w"])
 
 
 def test_inflight_tmp_is_never_listed_or_collected(tmp_path):
@@ -185,3 +217,42 @@ def test_preempt_and_resume_is_bitwise(tmp_path):
     for k, v in model.state_dict().items():
         assert torch.equal(v, want_params[k]), k
     assert np.isfinite([float(x) for x in got]).all()
+
+
+# --------------------------------------------------------------------------- #
+# sharded save and restore on four gloo ranks                                 #
+# --------------------------------------------------------------------------- #
+
+
+@pytest.fixture(scope="module")
+def four_rank_restore(tmp_path_factory):
+    """One run of four gloo ranks (``tests/torch_mesh_worker.py``) for the
+    two sharded cases of ``tests/test_checkpoint_async.py``."""
+    from torch_mesh_worker import run_ranks
+
+    return run_ranks("restore", 4, str(tmp_path_factory.mktemp("restore")))
+
+
+def test_sharded_restore_onto_mesh(four_rank_restore):
+    """Plain state restored onto DTensor templates sharded over the data
+    axis of a (4, 1) mesh: each rank holds its rows, the whole is bitwise."""
+    w = np.arange(8 * 6, dtype=np.float32).reshape(8, 6)
+    for rank, out in enumerate(four_rank_restore):
+        np.testing.assert_array_equal(out["onto_mesh_w"], w[2 * rank:2 * rank + 2])
+        np.testing.assert_array_equal(out["onto_mesh_full"], w)
+        np.testing.assert_array_equal(out["onto_mesh_mu"], 0.0)
+
+
+def test_sharded_save_restores_onto_different_mesh_layout(four_rank_restore):
+    """State saved sharded on a (2, 2) mesh (rows over data, columns over
+    model) restores onto the transposed rank layout with the transposed
+    placements: each rank holds its block of the new layout, bitwise."""
+    w = np.arange(8 * 12, dtype=np.float32).reshape(8, 12)
+    coords = set()
+    for out in four_rank_restore:
+        i, j = (int(c) for c in out["layout_coord"])  # (data, model)
+        coords.add((i, j))
+        np.testing.assert_array_equal(out["layout_w"], w[4 * j:4 * j + 4, 6 * i:6 * i + 6])
+        np.testing.assert_array_equal(out["layout_full"], w)
+        np.testing.assert_array_equal(out["layout_mu"], 0.0)
+    assert coords == {(0, 0), (0, 1), (1, 0), (1, 1)}

@@ -19,6 +19,8 @@ SUBPACKAGES = [
     "accvlab_tpu_torch._draws",
     "accvlab_tpu_torch.batched_loss_computation",
     "accvlab_tpu_torch.bench_pipeline",
+    "accvlab_tpu_torch.build_config",
+    "accvlab_tpu_torch.build_config.helpers",
     "accvlab_tpu_torch.color",
     "accvlab_tpu_torch.custom_processing_step",
     "accvlab_tpu_torch.detection_serving",
@@ -32,6 +34,9 @@ SUBPACKAGES = [
     "accvlab_tpu_torch.models.server",
     "accvlab_tpu_torch.models.serving",
     "accvlab_tpu_torch.object_detection_2d_pipeline",
+    "accvlab_tpu_torch.parallel",
+    "accvlab_tpu_torch.parallel.mesh",
+    "accvlab_tpu_torch.parallel.pipeline_parallel",
     "accvlab_tpu_torch.pipeline",
     "accvlab_tpu_torch.pipeline.inputs",
     "accvlab_tpu_torch.pipeline.inputs.elastic_sharded_input_callable",
@@ -43,6 +48,7 @@ SUBPACKAGES = [
     "accvlab_tpu_torch.pipeline.structured_output_iterator",
     "accvlab_tpu_torch.pipeline.worker_pool",
     "accvlab_tpu_torch.polyline",
+    "accvlab_tpu_torch.preemptible_training",
     "accvlab_tpu_torch.ragged",
     "accvlab_tpu_torch.tools",
     "accvlab_tpu_torch.tools.launch_counts",
@@ -163,7 +169,21 @@ def _entry_points():
         "TraceRangeWrapper.enable": lambda **kw: _tiny_trace_enable(**kw),
         "polyline.interpolate": lambda **kw: _tiny_interpolate(**kw),
         "get_as_data_node": lambda **kw: _tiny_data_node(**kw),
+        "make_mesh": lambda device=None: _tiny_mesh(device),
     }
+
+
+def _tiny_mesh(device):
+    """``make_mesh`` takes ``device_type=``; the group it makes is destroyed."""
+    import torch.distributed as dist
+
+    from accvlab_tpu_torch.parallel import make_mesh
+
+    try:
+        return make_mesh(device_type=device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _tiny_lane_run(**kw):
@@ -291,7 +311,7 @@ def _tiny_pipeline(stream=False, **kw):
                                   "StructuredOutputIterator", "load_inference",
                                   "InferenceServer.from_artifact", "detection_serving.main",
                                   "lane_regression_training.run", "TraceRangeWrapper.enable",
-                                  "polyline.interpolate", "get_as_data_node"])
+                                  "polyline.interpolate", "get_as_data_node", "make_mesh"])
 def test_entry_points_default_to_cuda(name):
     fn = _entry_points()[name]
     if torch.cuda.is_available():

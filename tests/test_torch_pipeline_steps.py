@@ -12,6 +12,7 @@ as each test states; heatmaps rtol 1e-6 (exp of XLA vs PyTorch, a few ulp);
 active / center / offset exact; normalized images 1e-5.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -279,6 +280,64 @@ def test_host_copy_round_trip_matches_jax(merge, max_chunk):
             np.testing.assert_array_equal(gn, wn)
 
     walk(got, want)
+
+
+@pytest.mark.parametrize("merge", [True, False])
+@pytest.mark.parametrize("max_chunk", [1 << 20, 256])
+@pytest.mark.parametrize("align", [1, 16, 64])
+@pytest.mark.parametrize("pack", [True, False])
+def test_host_copy_plan_matches_jax(merge, max_chunk, align, pack, monkeypatch):
+    """The chunk plan (the chunks in fill order, each with its dtype group,
+    its arrays' dtypes and shapes, their byte offsets and the chunk's
+    bytes) is JAX's, and the copy round-trips, for every option that
+    changes the plan."""
+    import accvlab_tpu.hostcopy.async_copy as jcopy
+    from accvlab_tpu_torch.hostcopy.async_copy import _flatten, _plan
+
+    tree = _tree(1)
+    tree["c"] = (np.arange(5) * (1 + 2j)).astype(np.complex64)
+    tree["u16"] = np.arange(9, dtype=np.uint16).reshape(3, 3)
+    kw = dict(pack_cpu_tensors=pack, min_packed_alignment_bytes=align,
+              max_packed_chunk_bytes=max_chunk, merge_dtype_chunks=merge)
+
+    recorded = []
+    real = jcopy.parallel_pack
+
+    def record(arrays, offsets, total):
+        recorded.append(([(str(a.dtype), a.shape) for a in arrays], list(offsets), total))
+        return real(arrays, offsets, total)
+
+    monkeypatch.setattr(jcopy, "parallel_pack", record)
+    want = jstart_copy(tree, use_background_thread=False, **kw).get()
+
+    leaves = []
+    _flatten(tree, leaves)
+    _, chunks = _plan(leaves, pack, align, max_chunk, None, merge)
+    plan = [([(str(a.dtype), a.shape) for _, a, _ in items], [off for _, _, off in items],
+             total) for _, items, total in chunks]
+    assert plan == recorded
+    # merged chunks first, then one group per dtype, as JAX fills them
+    groups = [None if d is None else str(d) for d, _, _ in chunks]
+    assert groups == sorted(groups, key=lambda g: g is not None)
+
+    got = tstart_copy(tree, device="cpu", use_background_thread=False, **kw).get()
+    for key in want:
+        for a, b in zip(torch.utils._pytree.tree_leaves(got[key]),
+                        jax.tree_util.tree_leaves(want[key])):
+            if isinstance(b, str):
+                assert a == b
+            else:
+                assert a.numpy().dtype == np.asarray(b).dtype
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_host_copy_pageable_staging_round_trips():
+    tree = _tree(2)
+    got = tstart_copy(tree, device="cpu", use_pinned_staging=False, pack_cpu_tensors=False,
+                      use_background_thread=False).get()
+    want = tstart_copy(tree, device="cpu", use_background_thread=False).get()
+    for a, b in zip(torch.utils._pytree.tree_leaves(got), torch.utils._pytree.tree_leaves(want)):
+        assert a == b if isinstance(a, str) else torch.equal(a, b)
 
 
 # --------------------------- input order ------------------------------- #

@@ -10,7 +10,9 @@ the input callable and the per-sample host steps.
   segment (nor the pool's payload file in the temporary directory) is left
   after ``stop()``, after a worker's error too (which raises in the
   consumer);
-* no worker initialises CUDA.
+* no worker initialises CUDA;
+* on a mesh of one gloo rank, process mode delivers ``DTensor`` leaves whose
+  full tensors are thread mode's batches, bit for bit.
 
 Two workers and small images: the workers import torch. The providers and
 steps are module-level classes, so the spawned workers can unpickle them;
@@ -220,3 +222,33 @@ def test_bench_wires_process_equals_thread(wire):
         outs[mode] = _epochs(pipe, 1)
         assert ("decoded_by" in pipe.stats()) == (wire == "yuv" and mode == "thread")
     _assert_equal(outs["process"], outs["thread"])
+
+
+def test_bench_pipeline_on_a_mesh_process_equals_thread():
+    """Process workers on a mesh of one gloo rank: every leaf a DTensor
+    whose full tensor is the thread mode's unsharded batch, bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from accvlab_tpu_torch.bench_pipeline import build_pipeline
+    from accvlab_tpu_torch.parallel import make_mesh
+
+    kw = dict(batch_size=2, device="cpu", num_threads=2, hw=(64, 96), num_cams=1,
+              out_hw=(32, 64), heatmap_hw=(8, 16), num_samples=16)
+    before = _pool_files()
+    try:
+        thread = build_pipeline(**kw)
+        process = build_pipeline(worker_mode="process", mesh=make_mesh(device_type="cpu"), **kw)
+        try:
+            for _ in range(2):
+                got, want = process.run(), thread.run()
+                assert set(got) == set(want)
+                for name, leaf in got.items():
+                    assert isinstance(leaf, DTensor), name
+                    assert torch.equal(leaf.full_tensor(), want[name]), name
+        finally:
+            thread.stop()
+            process.stop()
+    finally:
+        dist.destroy_process_group()
+    assert _pool_files() == before
