@@ -3,8 +3,8 @@
 train steps and decodes, ``eval`` (batched matching and the streaming mAP
 evaluator), ``train_utils``, ``params`` (flax parameters into the port's
 modules), and the serving side: ``checkpoint``, ``quantize``, ``serving``
-(``torch.export`` artifacts) and ``server`` (the micro-batching
-``InferenceServer``). MoE is not ported yet.
+(``torch.export`` artifacts, sharded over a mesh too) and ``server`` (the
+micro-batching ``InferenceServer``), and ``moe`` (the expert-parallel MoE).
 
 Submodules resolve lazily (PEP 562), as in the JAX package: a serving host
 that imports ``models.serving`` or ``models.checkpoint`` imports neither the
@@ -36,8 +36,8 @@ _EXPORTS = {name: module for module, names in (
     ("centernet", _CENTERNET), ("petr", _PETR), ("train_utils", _TRAIN_UTILS),
     ("eval", _EVAL), ("params", _PARAMS), ("server", _SERVER)) for name in names}
 
-_SUBMODULES = ("centernet", "checkpoint", "eval", "params", "petr", "quantize", "server",
-               "serving", "train_utils")
+_SUBMODULES = ("centernet", "checkpoint", "eval", "moe", "params", "petr", "quantize",
+               "server", "serving", "train_utils")
 
 __all__ = sorted(_EXPORTS)
 

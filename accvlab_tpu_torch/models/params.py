@@ -20,6 +20,13 @@ Layouts: conv kernels are HWIO there and OIHW here; ``Dense`` kernels
 ``DenseGeneral`` kernels ``(dim, heads, head_dim)`` (query, key, value) and
 ``(heads, head_dim, dim)`` (out) with biases ``(heads, head_dim)`` are
 ``Linear`` weights over ``heads * head_dim`` features here.
+A :class:`~.moe.MoEClassifier` takes the flax tree ``Dense_0``,
+``SwitchFFN_0/{router, w_in, w_out}``, ``LayerNorm_0`` and ``Dense_1`` (the
+expert weights ``(E, dim, hidden)`` and ``(E, hidden, dim)`` in the same
+layout on both sides; a classifier built without ``in_dim`` takes it from
+``Dense_0``'s kernel), and a lone :class:`~.moe.SwitchFFN` its
+``router``, ``w_in`` and ``w_out``.
+
 ``jax_params_of`` is the inverse. No JAX is imported: the caller converts its
 arrays with numpy.
 """
@@ -33,12 +40,13 @@ import torch
 from torch import nn
 
 from .centernet import CenterNetDetector
+from .moe import MoEClassifier, SwitchFFN
 from .petr import PETRDetector
 
 HWIO_TO_OIHW = (3, 2, 0, 1)
 OIHW_TO_HWIO = (2, 3, 1, 0)
 
-Model = Union[CenterNetDetector, PETRDetector]
+Model = Union[CenterNetDetector, PETRDetector, MoEClassifier, SwitchFFN]
 #: (to the port's layout, to flax's layout), both on numpy arrays
 Layout = Tuple[Callable[[np.ndarray], np.ndarray], Callable[[np.ndarray], np.ndarray]]
 
@@ -113,6 +121,23 @@ def _petr_leaves(model: PETRDetector) -> dict:
     return out
 
 
+def _switch_leaves(switch: SwitchFFN, prefix: Tuple[str, ...] = ()) -> dict:
+    out = {}
+    _linear(out, prefix + ("router",), switch.router)
+    out[prefix + ("w_in",)] = (switch.w_in, SAME)
+    out[prefix + ("w_out",)] = (switch.w_out, SAME)
+    return out
+
+
+def _moe_leaves(model: MoEClassifier) -> dict:
+    out = {}
+    _linear(out, ("Dense_0",), model.dense_0)
+    out.update(_switch_leaves(model.switch, ("SwitchFFN_0",)))
+    _norm(out, ("LayerNorm_0",), model.norm)
+    _linear(out, ("Dense_1",), model.dense_1)
+    return out
+
+
 def _lane_leaves(model) -> dict:
     out = {}
     for i, layer in enumerate((model.fc1, model.fc2, model.fc3), start=1):
@@ -135,6 +160,10 @@ def _leaves(model: Model) -> Dict[Tuple[str, ...], Tuple[torch.Tensor, Layout]]:
         return _petr_leaves(model)
     if isinstance(model, CenterNetDetector):
         return _centernet_leaves(model)
+    if isinstance(model, MoEClassifier):
+        return _moe_leaves(model)
+    if isinstance(model, SwitchFFN):
+        return _switch_leaves(model)
     raise TypeError(f"no flax layout for {type(model).__name__}")
 
 
@@ -162,6 +191,9 @@ def load_jax_params(module: Model, params: dict) -> Model:
         raise ValueError(f"expected the flax variables {{'params': ...}}, got keys {sorted(params)}")
     else:
         given = _flatten(params["params"])
+    if isinstance(module, MoEClassifier) and module.dense_0 is None \
+            and ("Dense_0", "kernel") in given:
+        module.build(int(given[("Dense_0", "kernel")].shape[0]))
     expected = _leaves(module)
     missing = sorted("/".join(p) for p in set(expected) - set(given))
     extra = sorted("/".join(p) for p in set(given) - set(expected))

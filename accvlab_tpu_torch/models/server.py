@@ -54,6 +54,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 import torch.utils._pytree as pytree
+from torch.distributed.tensor import DTensor
 
 
 class ServerClosed(RuntimeError):
@@ -117,6 +118,9 @@ class InferenceServer:
         device: where ``fn`` computes; default ``fn.device`` when it has one
             (a LoadedInference), else the CPU. On a CUDA device the batch is
             stacked in pinned memory and completion waits on a CUDA event.
+
+    When ``fn`` is a sharded artifact on a mesh of several ranks (its
+    ``mesh``), see :meth:`from_artifact`.
     """
 
     def __init__(
@@ -135,6 +139,11 @@ class InferenceServer:
             raise ValueError(f"pipeline_depth={pipeline_depth} must be >= 1")
         self._depth = int(pipeline_depth)
         self._fn = fn
+        mesh = getattr(fn, "mesh", None)
+        self._mesh = mesh if mesh is not None and mesh.size() > 1 else None
+        if self._mesh is not None and self._depth > 1:
+            raise ValueError("a sharded artifact serves with pipeline_depth=1: each batch's "
+                             "gather must complete on every rank before the next is formed")
         dev = torch.device(device if device is not None else getattr(fn, "device", "cpu"))
         self._cuda = dev if dev.type == "cuda" else None
         self._buckets = tuple(sorted(set(int(b) for b in batch_sizes)))
@@ -161,7 +170,8 @@ class InferenceServer:
         self._wait_s = collections.deque(maxlen=10_000)
 
         self._thread = threading.Thread(
-            target=self._serve_loop, name="accvlab-inference-server", daemon=True
+            target=self._serve_loop if self._mesh is None else self._serve_loop_mesh,
+            name="accvlab-inference-server", daemon=True
         )
         self._thread.start()
 
@@ -173,13 +183,27 @@ class InferenceServer:
 
         An artifact exported without ``batch_polymorphic`` takes exactly its
         export-time batch size, so when no ``batch_sizes`` is given the
-        server uses that single bucket."""
+        server uses that single bucket.
+
+        ``mesh``: serve a sharded artifact (``load_inference(mesh=)``). Each
+        batch is placed on the mesh per the artifact's placements and its
+        outputs are gathered to full tensors before the fan-out. Every rank
+        of the mesh runs a server and is given the same requests in the same
+        order, at whatever time each reaches it. On a mesh of several ranks
+        the rank at mesh coordinate 0 forms each batch on its own
+        ``max_delay_ms`` timer and broadcasts its size; every other rank
+        takes that many requests from its queue, in order, so every rank
+        runs the same batches and each row of the gathered outputs goes to
+        its own request. Such a server runs one batch at a time
+        (``pipeline_depth=1``), and ``close()`` always drains: a request
+        that one rank has batched is run by all.
+        """
         from . import serving
 
         loaded = serving.load_inference(path_or_bytes, device=device, mesh=mesh)
-        if "batch_sizes" not in kwargs and not loaded.info.get("batch_polymorphic"):
-            batched = {int(v.shape[0]) for v in serving._user_io(loaded._program)[0]
-                       if isinstance(v, torch.Tensor) and v.ndim >= 1}
+        shapes = loaded.input_shapes
+        if "batch_sizes" not in kwargs and shapes is not None:
+            batched = {int(s[0]) for s in shapes if len(s) >= 1}
             if len(batched) > 1:
                 raise ValueError(
                     "cannot infer the bucket size: the artifact's inputs have differing "
@@ -283,7 +307,9 @@ class InferenceServer:
                     return
                 if item is _SENTINEL:
                     continue
-                if self._drain_on_close:
+                if self._mesh is not None:  # no dispatcher left to agree a batch with
+                    _fail(item, ServerClosed("submit() raced close() of a sharded server"))
+                elif self._drain_on_close:
                     self._run_batch([item])
                 else:
                     _fail(item, ServerClosed("server closed with drain=False"))
@@ -362,6 +388,60 @@ class InferenceServer:
             for req in leftovers:
                 _fail(req, ServerClosed("server closed with drain=False"))
 
+    def _serve_loop_mesh(self):
+        """The dispatcher on a mesh of several ranks (see
+        :meth:`from_artifact`). A rank enters the broadcast of the batch size
+        only once it holds a request, so an idle server waits in no
+        collective."""
+        leader = all(c == 0 for c in self._mesh.get_coordinate())
+        max_bucket = self._buckets[-1]
+        stopping = False
+        while not stopping:
+            first = self._q.get()
+            if first is _SENTINEL:
+                break
+            batch = [first]
+            if leader:
+                deadline = time.monotonic() + self._max_delay
+                while len(batch) < max_bucket:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    try:
+                        nxt = self._q.get(timeout=remaining)
+                    except queue.Empty:
+                        break
+                    if nxt is _SENTINEL:
+                        stopping = True
+                        break
+                    batch.append(nxt)
+                self._agree(len(batch))
+            else:
+                n = self._agree(0)
+                while len(batch) < n:
+                    nxt = self._q.get()
+                    if nxt is _SENTINEL:  # the leader batched a request this rank never got
+                        stopping = True
+                        break
+                    batch.append(nxt)
+            self._run_batch(batch)
+
+    def _agree(self, n: int) -> int:
+        """The leader's ``n`` on every rank of the mesh: a broadcast from
+        coordinate 0 along each mesh dim in turn."""
+        import torch.distributed as dist
+
+        from ..parallel.mesh import mesh_device
+
+        mesh = self._mesh
+        t = torch.tensor([n], dtype=torch.int64, device=mesh_device(mesh))
+        coord = list(mesh.get_coordinate())
+        for d in range(mesh.ndim):
+            if mesh.size(d) > 1:
+                src = coord[:d] + [0] + coord[d + 1:]
+                dist.broadcast(t, src=int(mesh.mesh[tuple(src)]), group=mesh.get_group(d))
+        return int(t.item())
+
     def _run_batch(self, batch):
         """Dispatch + complete in one blocking call (reap/drain paths)."""
         rec = self._dispatch_batch(batch)
@@ -375,8 +455,12 @@ class InferenceServer:
         computes while the dispatcher collects the next batch."""
         # transition futures to RUNNING; drop the ones the client cancelled
         # while they were queued (fulfilling a cancelled future raises
-        # InvalidStateError, which would kill this thread)
-        batch = [r for r in batch if r.future.set_running_or_notify_cancel()]
+        # InvalidStateError, which would kill this thread). On a mesh every
+        # rank runs the batch the leader formed, so a cancelled request keeps
+        # its row there and only its result is dropped.
+        live = [r.future.set_running_or_notify_cancel() for r in batch]
+        if self._mesh is None:
+            batch = [r for r, ok in zip(batch, live) if ok]
         if not batch:
             return None
         n = len(batch)
@@ -425,6 +509,9 @@ class InferenceServer:
         # fan out; any split failure must fail the futures, never kill the
         # dispatcher thread (which would hang every later request)
         try:
+            # a sharded artifact's outputs are gathered first
+            out = pytree.tree_map(
+                lambda a: a.full_tensor() if isinstance(a, DTensor) else a, out)
             bad = [
                 tuple(getattr(leaf, "shape", ()))
                 for leaf in pytree.tree_leaves(out)

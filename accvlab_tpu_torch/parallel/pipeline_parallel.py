@@ -19,8 +19,13 @@ dropped by every rank, so no rank sends it.
 
 Gradients: the loss' sum over ``pipe`` and mean over the data axes pass
 their cotangent through unchanged (the loss is one replicated scalar), and
-a stage parameter's gradient is summed over the mesh axes it is replicated
-on, as GSPMD's transpose of a replicated input does. ``jax.grad`` of JAX's
+a stage parameter's gradient is summed over the data axes of ``data_spec``
+it is replicated on, as the transpose of a replicated input of JAX's
+``shard_map`` does there. Over the other axes (``model`` in a
+tensor-parallel stage) the stage function owns its collectives, with
+``shard_map``'s transposes (:mod:`._collectives`): a replicated value that
+enters work split over ``model`` goes through ``sum_grad_over``, and a
+``psum`` passes its cotangent through. ``jax.grad`` of JAX's
 :func:`pipeline_loss` and ``backward()`` of this one give the same
 gradients.
 
@@ -39,6 +44,10 @@ import torch.utils._pytree as pytree
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
+
+from ._collectives import _SumGradOver
+from ._collectives import axis_size as _axis_size
+from ._collectives import psum as _psum
 
 
 def _data_axis_names(data_spec):
@@ -87,48 +96,6 @@ class _PPermute(torch.autograd.Function):
         return _exchange(grad, ctx.group, ctx.prv, ctx.nxt), None, None, None
 
 
-class _SumOfReplicas(torch.autograd.Function):
-    """``lax.psum`` of a value every rank then holds: the sum over
-    ``group``; the cotangent of the one replicated result passes through."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
-
-
-class _SumGradOver(torch.autograd.Function):
-    """The identity, whose gradient is summed over ``groups``: a stage
-    parameter replicated over those mesh axes (GSPMD's gradient reduction)."""
-
-    @staticmethod
-    def forward(ctx, x, groups):
-        ctx.groups = groups
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.clone()
-        for group in ctx.groups:
-            dist.all_reduce(grad, group=group)
-        return grad, None
-
-
-def _axis_size(mesh: DeviceMesh, axis: str) -> int:
-    return mesh.size(mesh.mesh_dim_names.index(axis))
-
-
-def _psum(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
-    if _axis_size(mesh, axis) == 1:
-        return x
-    return _SumOfReplicas.apply(x, mesh.get_group(axis))
-
-
 def _local(x):
     return x.to_local() if isinstance(x, DTensor) else x
 
@@ -137,9 +104,12 @@ def _is_placements(x) -> bool:
     return isinstance(x, tuple) and all(isinstance(p, Placement) for p in x)
 
 
-def _stage_slices(stage_params, mesh: DeviceMesh, pipe_axis: str, param_specs):
+def _stage_slices(stage_params, mesh: DeviceMesh, pipe_axis: str, param_specs, data_axes=()):
     """Each leaf's slice for this rank's stage, its gradient summed over the
-    mesh axes the leaf is replicated on."""
+    data axes the leaf is replicated on (each such rank saw its own part of
+    the batch). Over any other axis the stage function owns the collectives,
+    as under ``shard_map``: a replicated leaf that enters work split over
+    that axis goes through ``sum_grad_over`` there."""
     pipe_dim = mesh.mesh_dim_names.index(pipe_axis)
     default = tuple(Shard(0) if d == pipe_dim else Replicate() for d in range(mesh.ndim))
     leaves, spec = pytree.tree_flatten(stage_params)
@@ -161,7 +131,7 @@ def _stage_slices(stage_params, mesh: DeviceMesh, pipe_axis: str, param_specs):
             raise ValueError(f"this rank's slice of a stage parameter has {local.shape[0]} "
                              "stages, not 1")
         groups = [mesh.get_group(name) for d, name in enumerate(mesh.mesh_dim_names)
-                  if placements[d] == Replicate() and mesh.size(d) > 1]
+                  if placements[d] == Replicate() and mesh.size(d) > 1 and name in data_axes]
         if groups:
             local = _SumGradOver.apply(local, groups)
         out.append(local[0])
@@ -226,7 +196,9 @@ def pipeline_apply(
             dim) matching ``stage_params``, for tensor-parallel stages: each
             keeps ``Shard(0)`` on ``pipe_axis`` and may shard other dims over
             further axes; ``stage_fn`` then sees per-rank shards and owns the
-            matching collectives. Default: ``Shard(0)`` on ``pipe_axis``,
+            matching collectives (``_collectives.psum`` and
+            ``_collectives.sum_grad_over``; a leaf's gradient is summed over
+            the data axes only). Default: ``Shard(0)`` on ``pipe_axis``,
             ``Replicate()`` elsewhere.
 
     Returns:
@@ -237,7 +209,8 @@ def pipeline_apply(
     n_stages = _axis_size(mesh, pipe_axis)
     last = torch.full((), mesh.get_local_rank(pipe_axis) == n_stages - 1,
                         device=_local(xs).device)
-    params_slice = _stage_slices(stage_params, mesh, pipe_axis, param_specs)
+    params_slice = _stage_slices(stage_params, mesh, pipe_axis, param_specs,
+                                 _data_axis_names(data_spec))
 
     def emit(y, t):
         # only the final stage's outputs are real; other stages fill their
@@ -284,7 +257,8 @@ def pipeline_loss(
     n_micro = xs_local.shape[0]
     tgt_local = pytree.tree_map(_local, targets)
     is_last = mesh.get_local_rank(pipe_axis) == n_stages - 1
-    params_slice = _stage_slices(stage_params, mesh, pipe_axis, param_specs)
+    params_slice = _stage_slices(stage_params, mesh, pipe_axis, param_specs,
+                                 _data_axis_names(data_spec))
 
     def emit(y, t):
         # tick t >= n_stages-1 completes microbatch t - (n_stages-1)

@@ -633,27 +633,55 @@ class TorchPipeline:
         the stage's random draws from it. It returns the flat output leaves
         (``pipeline_output_fields``), bit for bit those of
         :meth:`run_device_stage` on the same leaves. Raises as
-        :meth:`device_program_text`, and ``NotImplementedError`` on a mesh
-        pipeline.
+        :meth:`device_program_text`.
+
+        On a mesh pipeline the program is this rank's device stage: its
+        leaves and outputs are recorded ``Shard(0)`` over ``data`` (replicated
+        over the other axes) with their global shapes, and the draws are made
+        from the key the caller gives (this rank's). Load it with
+        ``load_inference(mesh=)``: it takes the rank's leaves (or the
+        DTensors of the batch) and returns DTensors, as the pipeline delivers.
 
         Returns the header; the bytes go to ``path`` (atomic write) when it
         is given, else they are returned instead of the header.
         """
         from ..models import serving as _serving
 
-        if self._mesh is not None:
-            raise NotImplementedError("the device program of a mesh pipeline waits for the "
-                                      "sharded serving side (ROADMAP.md §1 item 2)")
         ep, schedule = self._export_device_stage()
         header = _serving._header(ep, False, "device_stage", "highest")
         header["draw_schedule"] = list(schedule)
         header["pipeline_input_fields"] = list(self._host_out_blueprint.field_names_flat)
         header["pipeline_output_fields"] = list(self._output_blueprint.field_names_flat)
+        if self._mesh is not None:
+            header.update(self._mesh_fields(ep, len(schedule)))
         data = _serving._pack(header, _serving.program_bytes(ep))
         if path is None:
             return data
         _serving._atomic_write(path, data)
         return header
+
+    def _mesh_fields(self, ep, n_draws: int) -> dict:
+        """The sharded-artifact header fields of this rank's device stage:
+        every leaf and output ``Shard(0)`` over ``data``."""
+        from ..models import serving as _serving
+        from ..parallel.mesh import shard_like_batch
+
+        mesh = self._mesh
+        n_data = mesh.size(mesh.mesh_dim_names.index("data"))
+        ins, outs = _serving._user_io(ep)
+        ins = ins[:len(ins) - n_draws]
+
+        def record(vals):
+            pls = [_serving.placements_by_axis(mesh, shard_like_batch(mesh, v.ndim))
+                   for v in vals]
+            shapes = [[int(v.shape[0]) * n_data] + [int(d) for d in v.shape[1:]] for v in vals]
+            return pls, shapes
+
+        in_pl, in_shapes = record(ins)
+        out_pl, out_shapes = record(outs)
+        return {"nr_devices": int(mesh.size()), "mesh": _serving.mesh_record(mesh),
+                "in_placements": in_pl, "in_shapes": in_shapes, "out_placements": out_pl,
+                "out_shapes": out_shapes}
 
     # ------------------------------------------------------------------ #
     # Prefetching iterator protocol                                      #

@@ -3411,6 +3411,264 @@ def mesh_phase(dev, card: str, main_fps: float) -> int:
     return launches
 
 
+# sharded serving: the serving phase's detector at 8 x 256x704, exported on a
+# one-rank mesh with its batch Shard(0) over data; per-batch ms of the sharded
+# and the unsharded artifact in turns (unsharded, sharded, sharded, unsharded)
+SHARDED_TURNS = 4
+SHARDED_ITERS = 10
+SHARDED_ARTIFACT = os.path.join(BUILD_DIR, "serving_sharded.accvserve")
+MESH_PREPROCESS_ARTIFACT = os.path.join(BUILD_DIR, "preprocess_mesh.accvserve")
+# moe: the example's widths (8 experts, dim 32, batch 8 x 16 x 12), both
+# routings, 40 steps each; the first loss on the card against the CPU from
+# the same init, relative (the bf16 expert products round differently)
+MOE_TIMED = 20
+MOE_CPU_RTOL = 2e-3
+# dryrun: each stanza on a one-rank NCCL mesh against the same step
+# unsharded on the card, through the port's own trainers, relative
+DRYRUN_RTOL = 1e-4
+
+
+def sharded_serving_phase(dev, card: str) -> int:
+    """The sharded serving side on a one-rank NCCL mesh: the detector's
+    sharded artifact rebound onto a fresh mesh, bitwise the unsharded
+    artifact; the InferenceServer on it; the mesh pipeline's device program
+    replayed bitwise its eager stage. Returns the rasterizer's launches."""
+    import threading
+
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from accvlab_tpu_torch.bench_pipeline import build_pipeline
+    from accvlab_tpu_torch.detection_serving import seeded_detector
+    from accvlab_tpu_torch.heatmap import LAUNCHES, reset_launch_counts
+    from accvlab_tpu_torch.models import InferenceServer
+    from accvlab_tpu_torch.models.serving import (
+        _atomic_write,
+        export_inference,
+        load_inference,
+        read_artifact_info,
+    )
+    from accvlab_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    model = seeded_detector(10, 64, seed=0, device=dev)
+    rng = np.random.default_rng(3)
+    images = torch.from_numpy(rng.uniform(0, 1, (8, *WIDTH["out_hw"], 3)).astype(np.float32)
+                              ).to(dev)
+    mesh = make_mesh()
+    batch_pl = (Shard(0), Replicate())
+    plain = load_inference(export_inference(model, (images,)))
+    t0 = time.perf_counter()
+    data = export_inference(model, (images,), mesh=mesh, in_shardings=(batch_pl,))
+    export_s = time.perf_counter() - t0
+    _atomic_write(SHARDED_ARTIFACT, data)
+    info = read_artifact_info(SHARDED_ARTIFACT)
+    fresh = make_mesh()
+    if fresh is mesh:
+        fail("sharded_serving: make_mesh() returned the exporting mesh")
+    sharded = load_inference(SHARDED_ARTIFACT, mesh=fresh)
+    with torch.no_grad():
+        want = plain(images)
+        got = sharded(images)
+    for k, v in got.items():
+        if not (isinstance(v, DTensor) and v.placements == batch_pl and v.to_local().is_cuda):
+            fail(f"sharded_serving: output {k} is not a DTensor Shard(0) over data on the card")
+        if not torch.equal(v.to_local(), want[k]):
+            fail(f"sharded_serving: output {k} differs from the unsharded artifact's")
+
+    # ms per batch at bucket 8, in turns
+    ms = {"unsharded": [], "sharded": []}
+    with torch.no_grad():
+        for turn in range(SHARDED_TURNS):
+            kind = "sharded" if turn in (1, 2) else "unsharded"
+            fn = sharded if kind == "sharded" else plain
+            ms[kind] += event_ms(lambda: fn(images), SHARDED_ITERS)
+
+    # the server on the sharded artifact: every request bitwise its batch row
+    n = SERVE_CLIENTS * SERVE_PER_CLIENT
+    requests = torch.from_numpy(rng.uniform(0, 1, (n, *WIDTH["out_hw"], 3)).astype(np.float32))
+    requests[:, 0, 0, 0] = torch.arange(n, dtype=torch.float32)  # each request's tag
+    server = InferenceServer.from_artifact(SHARDED_ARTIFACT, mesh=fresh,
+                                           max_delay_ms=SERVE_MAX_DELAY_MS,
+                                           pipeline_depth=SERVE_DEPTH)
+    if server._buckets != (8,):
+        fail(f"sharded_serving: the server's buckets are {server._buckets}, not the export's 8")
+    batches = []
+    loaded = server._fn
+
+    def recorded(x):
+        out = loaded(x)
+        batches.append((x, out))
+        return out
+
+    server._fn = recorded
+    results, lat = [None] * n, []
+
+    def client(cid):
+        for i in range(SERVE_PER_CLIENT):
+            r = cid * SERVE_PER_CLIENT + i
+            t = time.perf_counter()
+            results[r] = server.infer(requests[r], timeout=120)
+            lat.append((time.perf_counter() - t) * 1e3)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    st = server.stats()
+    server.close()
+    if st["requests"] != n or st["errors"]:
+        fail(f"sharded_serving: the server answered {st['requests']} of {n}, {st['errors']} "
+             "errors")
+    where = {}
+    for x, out in batches:
+        for j in range(x.shape[0]):
+            where.setdefault(int(x[j, 0, 0, 0]), (out, j))
+    for r in range(n):
+        out, j = where[r]
+        if not all(not isinstance(results[r][k], DTensor)
+                   and torch.equal(results[r][k], out[k].full_tensor()[j: j + 1]) for k in out):
+            fail(f"sharded_serving: request {r} differs from its batch's row")
+
+    # the mesh pipeline's device program, replayed through load_inference(mesh=)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    pipe = build_pipeline(batch_size=WIDTH["batch"], device=dev, cache_dir=CACHE_DIR, mesh=mesh)
+    try:
+        pipe.run()
+        pipe.run()
+        pipe._halt_producer()
+        idx, _, _, host = pipe._produce_host_batch()
+        leaves = pipe._transfer(host)
+        eager = pipe.run_device_stage(leaves, idx)
+        header = pipe.export_device_program(MESH_PREPROCESS_ARTIFACT)
+        replay = load_inference(MESH_PREPROCESS_ARTIFACT, mesh=fresh)
+        torch.cuda.synchronize()
+        before = LAUNCHES["draw_gaussians"]
+        out = replay(leaves, (0, idx))
+        torch.cuda.synchronize()
+        if LAUNCHES["draw_gaussians"] != before + 1:
+            fail("sharded_serving: the mesh stage's artifact did not launch the rasterizer once")
+        for name, g, w in zip(header["pipeline_output_fields"], out, eager):
+            if not (isinstance(g, DTensor) and g.placements == batch_pl
+                    and torch.equal(g.to_local(), w)):
+                fail(f"sharded_serving: the replayed {name} differs from the eager mesh stage")
+    finally:
+        pipe.stop()
+    launches = LAUNCHES["draw_gaussians"]
+    if launches != 4:
+        fail(f"sharded_serving: draw_gaussians launched {launches} times for 2 batches, one "
+             "eager stage and one replay")
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    emit({"phase": "sharded_serving", "card": card,
+          "config": "seeded_detector(10, 64) at 8 x 256x704, exported on make_mesh() "
+                    "(data 1, model 1, NCCL) with the batch Shard(0) over data, loaded on a "
+                    "fresh mesh; bench.py's mesh pipeline (DCT wire, batch 8 x 6 cams) "
+                    "exported through export_device_program",
+          "header": {k: info[k] for k in ("nr_devices", "mesh", "in_placements",
+                                          "out_placements")},
+          "export_s": export_s, "bitwise_vs_unsharded": True,
+          "sharded_ms_per_batch": float(np.median(ms["sharded"])),
+          "unsharded_ms_per_batch": float(np.median(ms["unsharded"])),
+          "sharded_over_unsharded": float(np.median(ms["sharded"]) / np.median(ms["unsharded"])),
+          "ms_min_max": {k: [min(v), max(v)] for k, v in ms.items()},
+          "turns": "unsharded, sharded, sharded, unsharded", "calls_per_turn": SHARDED_ITERS,
+          "server": {"requests": n, "wall_s": wall, "requests_per_s": n / wall,
+                     "client_p50_ms": float(np.percentile(lat, 50)),
+                     "client_p95_ms": float(np.percentile(lat, 95)),
+                     "batches": st["batches"], "padded_samples": st["padded_samples"],
+                     "bitwise_vs_batch_row": True},
+          "mesh_stage": {"leaves_in": len(leaves), "leaves_out": len(eager),
+                         "bitwise_vs_eager": True, "draw_gaussians_per_call": 1},
+          "draw_gaussians_launches": launches, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+def moe_phase(dev, card: str) -> None:
+    """The expert-parallel MoE example on a one-rank NCCL mesh, both
+    routings; step ms, launches, the first loss against the CPU, one step
+    under the sync check."""
+    import torch.distributed as dist
+
+    from accvlab_tpu_torch import moe_expert_parallel_training as ex
+    from accvlab_tpu_torch.models.moe import MoEClassifier, init_params, moe_loss
+    from accvlab_tpu_torch.models.moe import make_moe_example_batch
+    from accvlab_tpu_torch.tools.launch_counts import kernel_counts, launches
+
+    t_phase = time.perf_counter()
+    res = {}
+    for k in (1, 2):
+        mesh, last, losses = ex.train(k)
+        if tuple(mesh.shape) != (1, 1) or not last < losses[0]:
+            fail(f"moe: top-{k} on a {tuple(mesh.shape)} mesh, loss {losses[0]} -> {last}")
+        model, batch, step, _ = ex.build(k, mesh=mesh)
+        ms = event_ms(lambda: step(model, batch, ex.LR), MOE_TIMED)
+        counts = kernel_counts(lambda: step(model, batch, ex.LR))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(model, batch, ex.LR)
+        except RuntimeError as e:
+            fail(f"moe: a top-{k} step synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        # the first loss: card against CPU from the same init and batch
+        cpu = MoEClassifier(ex.NUM_EXPERTS, ex.DIM, ex.NUM_CLASSES, k, in_dim=ex.IN_DIM)
+        init_params(cpu, torch.Generator().manual_seed(0))
+        cpu_batch = make_moe_example_batch(ex.BATCH, ex.TOKENS, ex.IN_DIM, ex.NUM_CLASSES,
+                                           device="cpu")
+        with torch.no_grad():
+            cpu_first = float(moe_loss(cpu, cpu_batch))
+        rel = abs(losses[0] - cpu_first) / abs(cpu_first)
+        if not np.isfinite(losses).all() or rel > MOE_CPU_RTOL:
+            fail(f"moe: top-{k} first loss {losses[0]} on the card, {cpu_first} on the CPU")
+        res[f"top{k}"] = {"losses_first_last": [losses[0], last], "cpu_first_loss": cpu_first,
+                          "first_loss_rel_err": rel, "step_ms": float(np.median(ms)),
+                          "step_ms_min_max": [min(ms), max(ms)],
+                          "launches_per_step": launches(counts),
+                          "launch_readings": counts["readings"],
+                          "busy_ms_per_step": counts["busy_ms"], "sync_free_step": True,
+                          "experts_per_rank": int(model.switch.w_in.to_local().shape[0])}
+    dist.destroy_process_group()
+    emit({"phase": "moe", "card": card,
+          "config": "moe_expert_parallel_training: MoEClassifier(8 experts, dim 32, 5 "
+                    "classes), batch 8 x 16 x 12, 40 SGD steps at lr 5e-2, on (data 1, "
+                    "expert 1) over NCCL", "results": res, "cpu_rtol": MOE_CPU_RTOL,
+          "phase_s": time.perf_counter() - t_phase})
+
+
+def dryrun_phase(dev, card: str) -> None:
+    """dryrun_multichip's six stanzas and the FSDP step on one-rank NCCL
+    meshes, each against the same step unsharded on the card."""
+    import torch.distributed as dist
+
+    from accvlab_tpu_torch import dryrun_multichip as dr
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    res = dr.run_stanzas("cuda")
+    sharded_s = time.perf_counter() - t0
+    dist.destroy_process_group()
+    out = {}
+    for name, r in res.items():
+        ref = dr.reference_loss(name, 1, dev)
+        rel = abs(r["loss"] - ref) / abs(ref)
+        if not (np.isfinite(r["loss"]) and rel <= DRYRUN_RTOL):
+            fail(f"dryrun: {name}'s loss {r['loss']} on the mesh, {ref} unsharded")
+        out[name] = {"loss": r["loss"], "unsharded_loss": ref, "rel_err": rel,
+                     "mesh": r["mesh"], "local_shapes": r["local_shapes"]}
+    emit({"phase": "dryrun", "card": card,
+          "config": "accvlab_tpu_torch.dryrun_multichip.run_stanzas on one NCCL rank (every "
+                    "mesh axis of size 1, the batches of 8 devices), each loss against "
+                    "reference_loss (the port's unsharded trainers) on the card",
+          "stanzas": out, "rtol": DRYRUN_RTOL, "sharded_s": sharded_s,
+          "phase_s": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -3465,6 +3723,9 @@ def main() -> int:
     elastic_phase(dev, card)
     tools_launches = tools_phase(dev, card)
     mesh_launches = mesh_phase(dev, card, main_fps)
+    sharded_launches = sharded_serving_phase(dev, card)
+    moe_phase(dev, card)
+    dryrun_phase(dev, card)
 
     kernels = []
     for k in KINDS:
@@ -3473,7 +3734,8 @@ def main() -> int:
         kernels.append({
             "name": ENTRY[k], "route": "cuda", "source": SOURCE, "replaces": replaces[k],
             "launches": (main_launches[ENTRY[k]] + det2d_launches + export_launches
-                         + tools_launches + mesh_launches if k == "gaussians"
+                         + tools_launches + mesh_launches + sharded_launches
+                         if k == "gaussians"
                          else entry_launches[ENTRY[k]]),
             "max_abs_err": max(r["max_abs_err"], rx["max_abs_err"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -3483,8 +3745,10 @@ def main() -> int:
             "launches_from": (f"main path ({main_launches[ENTRY[k]]}), det2d "
                               f"({det2d_launches}), export ({export_launches}: the "
                               "pipeline's batches and the exported stage's call through the "
-                              f"registered operator), tools ({tools_launches}) and the "
-                              f"main path on a mesh ({mesh_launches})"
+                              f"registered operator), tools ({tools_launches}), the "
+                              f"main path on a mesh ({mesh_launches}) and the mesh "
+                              f"pipeline's exported stage ({sharded_launches}: 2 batches, "
+                              "the eager stage and its replay)"
                               if k == "gaussians"
                               else "entry-point drive"),
         })

@@ -25,7 +25,6 @@ FLAX = "flax module fields against torch.nn.Module"
 
 # modules of the JAX package with no counterpart yet (ROADMAP.md §1)
 NOT_PORTED = {
-    "models.moe": "MoE waits for the sharded-serving slice (ROADMAP.md §1 item 2)",
     "tools.program_cache": "program_cache waits for a CUDA graph of the device stage "
                            "(ROADMAP.md §1 item 3)",
     **{f"video{s}": "video needs FFmpeg, which the card machine lacks (ROADMAP.md §1 item 6)"
@@ -86,10 +85,8 @@ SIGNATURES = {
                                             "(tree_flatten)",
     ("models.serving", "freeze_params"): "apply_fn and variables become a module",
     ("models.serving", "save_inference"): "apply_fn and variables become a module",
-    ("models.serving", "LoadedInference"): "a torch.export program on a device; the "
-                                           "sharded-serving mesh is not ported yet",
-    ("models.serving", "export_inference"): "the sharded-serving keywords (platforms, "
-                                            "in_shardings) are not ported yet",
+    ("models.moe", "MoEClassifier"): FLAX,
+    ("models.moe", "SwitchFFN"): FLAX,
     ("pipeline.operators.image_ops", "warp_affine"): "batched device steps: images "
                                                      "(B, H, W, C)",
     ("ragged", "SIZE_DTYPE"): "a torch dtype, not a numpy scalar type",

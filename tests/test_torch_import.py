@@ -24,17 +24,21 @@ SUBPACKAGES = [
     "accvlab_tpu_torch.color",
     "accvlab_tpu_torch.custom_processing_step",
     "accvlab_tpu_torch.detection_serving",
+    "accvlab_tpu_torch.dryrun_multichip",
     "accvlab_tpu_torch.heatmap",
     "accvlab_tpu_torch.heatmap._ops",
     "accvlab_tpu_torch.hostcopy",
     "accvlab_tpu_torch.lane_regression_training",
     "accvlab_tpu_torch.models",
     "accvlab_tpu_torch.models.checkpoint",
+    "accvlab_tpu_torch.models.moe",
     "accvlab_tpu_torch.models.quantize",
     "accvlab_tpu_torch.models.server",
     "accvlab_tpu_torch.models.serving",
+    "accvlab_tpu_torch.moe_expert_parallel_training",
     "accvlab_tpu_torch.object_detection_2d_pipeline",
     "accvlab_tpu_torch.parallel",
+    "accvlab_tpu_torch.parallel._collectives",
     "accvlab_tpu_torch.parallel.mesh",
     "accvlab_tpu_torch.parallel.pipeline_parallel",
     "accvlab_tpu_torch.pipeline",
@@ -170,7 +174,29 @@ def _entry_points():
         "polyline.interpolate": lambda **kw: _tiny_interpolate(**kw),
         "get_as_data_node": lambda **kw: _tiny_data_node(**kw),
         "make_mesh": lambda device=None: _tiny_mesh(device),
+        "moe_expert_parallel_training.train": lambda **kw: _tiny_moe_train(**kw),
+        "dryrun_multichip": lambda **kw: _tiny_dryrun(**kw),
     }
+
+
+def _tiny_moe_train(**kw):
+    """Two steps of the MoE example; the group it makes is destroyed."""
+    import torch.distributed as dist
+
+    from accvlab_tpu_torch.moe_expert_parallel_training import train
+
+    try:
+        return train(1, steps=2, **kw)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _tiny_dryrun(**kw):
+    """Every stanza on one rank, in a fresh process."""
+    from accvlab_tpu_torch.dryrun_multichip import dryrun_multichip
+
+    return dryrun_multichip(1, **kw)
 
 
 def _tiny_mesh(device):
@@ -311,7 +337,8 @@ def _tiny_pipeline(stream=False, **kw):
                                   "StructuredOutputIterator", "load_inference",
                                   "InferenceServer.from_artifact", "detection_serving.main",
                                   "lane_regression_training.run", "TraceRangeWrapper.enable",
-                                  "polyline.interpolate", "get_as_data_node", "make_mesh"])
+                                  "polyline.interpolate", "get_as_data_node", "make_mesh",
+                                  "moe_expert_parallel_training.train", "dryrun_multichip"])
 def test_entry_points_default_to_cuda(name):
     fn = _entry_points()[name]
     if torch.cuda.is_available():

@@ -177,11 +177,19 @@ def test_header_audit_and_error_contracts(small_model):
 
 
 def test_sharded_export_and_load_wait_for_parallel(small_model):
-    with pytest.raises(NotImplementedError, match="parallel"):
+    """The sharded side's contracts without a process group: ``mesh`` needs
+    ``in_shardings``, and an unsharded artifact (one device) does not load
+    onto a mesh of two (tests/test_torch_sharded_serving.py runs meshes)."""
+
+    class TwoRanks:
+        def size(self):
+            return 2
+
+    with pytest.raises(ValueError, match="together"):
         export_inference(freeze_params(small_model), (_images(2),), mesh=object())
     art = export_inference(freeze_params(small_model), (_images(2),))
-    with pytest.raises(NotImplementedError, match="parallel"):
-        load_inference(art, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="same-size mesh"):
+        load_inference(art, device="cpu", mesh=TwoRanks())
 
 
 def test_detections_come_back_as_ragged_batches(small_model):

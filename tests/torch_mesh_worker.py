@@ -10,6 +10,7 @@ imports the port and never JAX.
 import os
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -239,6 +240,138 @@ def case_preempt(rank, world, inputs, workdir):
             "res_losses": torch.stack(res["res_losses"]).numpy(),
             **{f"pre.{k}": v.numpy() for k, v in res["pre_params"].items()},
             **{f"res.{k}": v.numpy() for k, v in res["res_params"].items()}}
+
+
+def case_dryrun(rank, world, inputs, workdir):
+    """accvlab_tpu_torch.dryrun_multichip's stanzas on this world with JAX's
+    parameters and batches: each stanza's loss(es), compared gradients or
+    parameters, delivered batches and local shapes, flat."""
+    from accvlab_tpu_torch.dryrun_multichip import run_stanzas
+
+    out = {}
+    for name, res in run_stanzas("cpu", inputs).items():
+        out[f"{name}/loss"] = np.array(res["loss"])
+        out[f"{name}/losses"] = np.array(res.get("losses", [res["loss"]]))
+        for key in ("grads", "params", "batches"):
+            for k, v in res.get(key, {}).items():
+                out[f"{name}/{key}/{k}"] = np.asarray(v)
+        for k, v in res["local_shapes"].items():
+            out[f"{name}/local_shapes/{k}"] = np.array(v)
+    return out
+
+
+def _serving_inputs(inputs):
+    import torch
+
+    return torch.from_numpy(inputs["images"]), torch.from_numpy(inputs["x"])
+
+
+def case_serving(rank, world, inputs, workdir):
+    """Sharded serving and expert parallelism on 4 ranks:
+
+    * the detector exported on (data 2, model 2), rebound onto the same
+      shape over the transposed rank layout; a function that needs a
+      collective is refused;
+    * JAX's model-parallel artifact (x @ w, w Shard(1) over model) on the
+      (model 2) meshes of ranks {0, 1} and {2, 3}, served through
+      InferenceServer.from_artifact(mesh=) on each pair in reverse order,
+      then with the requests reaching the pair's ranks with skewed timing;
+    * the MoE top-2 step on (data 2, expert 2)."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from accvlab_tpu_torch.models import InferenceServer
+    from accvlab_tpu_torch.models.centernet import CenterNetDetector
+    from accvlab_tpu_torch.models.moe import (
+        MoEClassifier,
+        make_moe_shardings,
+        moe_loss,
+        shard_moe_params,
+    )
+    from accvlab_tpu_torch.models.params import load_jax_params
+    from accvlab_tpu_torch.models.serving import export_inference, load_inference
+    from accvlab_tpu_torch.parallel import make_mesh_nd
+    from accvlab_tpu_torch.parallel._collectives import from_full
+    from accvlab_tpu_torch.dryrun_multichip import _nest
+
+    images, x = _serving_inputs(inputs)
+    out = {}
+
+    # 1. the detector, batch Shard(0) over data, rebound onto the transposed
+    # rank layout (rank 1 moves from data 0 to data 1)
+    model = CenterNetDetector(num_classes=4, width=8)
+    load_jax_params(model, _nest(inputs, "centernet"))
+    model.eval().requires_grad_(False)
+    mesh = make_mesh_nd((2, 2), ("data", "model"), device_type="cpu")
+    batch = (Shard(0), Replicate())
+    art = export_inference(model, (images,), mesh=mesh, in_shardings=(batch,))
+    fresh = make_mesh_nd((2, 2), ("data", "model"), devices=[0, 2, 1, 3], device_type="cpu")
+    got = load_inference(art, mesh=fresh)(images)
+    again = load_inference(art, mesh=mesh)(images)
+    for k, v in got.items():
+        assert isinstance(v, DTensor) and v.placements == batch
+        out[f"heads/{k}"] = v.full_tensor().numpy()
+        out[f"heads_same_mesh/{k}"] = again[k].full_tensor().numpy()
+    out["data_index"] = np.array([mesh.get_local_rank("data"), fresh.get_local_rank("data")])
+    try:
+        export_inference(lambda t: t - t.mean(dim=0), (images,), mesh=mesh, in_shardings=(batch,))
+        out["refused"] = np.array(False)
+    except ValueError as e:
+        out["refused"] = np.array("collective" in str(e))
+
+    # 2. the model-parallel artifact through the server on (model 2) meshes:
+    # ranks {0, 1} and {2, 3} each serve it, on their pair in reverse order
+    w = torch.from_numpy(inputs["w"])
+    mp = make_mesh_nd((2, 2), ("replica", "model"), device_type="cpu")["model"]
+    w_sharded = from_full(w, mp, (Shard(1),))
+    art = export_inference(lambda t: {"y": t @ w_sharded}, (np.zeros((2, 4), np.float32),),
+                           mesh=mp, in_shardings=((Replicate(),),))
+    served = make_mesh_nd((2, 2), ("replica", "model"), devices=[1, 0, 3, 2],
+                          device_type="cpu")["model"]
+    with InferenceServer.from_artifact(art, mesh=served, batch_sizes=(2,),
+                                       max_delay_ms=500.0) as server:
+        f0, f1 = server.submit(x[0]), server.submit(x[1])
+        lone = server.infer(x[0], timeout=60)
+        out["served"] = np.concatenate([f0.result(60)["y"].numpy(), f1.result(60)["y"].numpy(),
+                                        lone["y"].numpy()])
+    # the same requests reaching the two ranks with skewed timing: in each
+    # round one rank gets the first request 0.3 s before the other three,
+    # and the other rank gets all four at once
+    reqs = torch.arange(16, dtype=torch.float32).reshape(4, 4)
+    leader = served.get_coordinate()[0] == 0
+    skewed = []
+    with InferenceServer.from_artifact(art, mesh=served, batch_sizes=(2,),
+                                       max_delay_ms=20.0) as server:
+        for leader_slow in (True, False):
+            futs = [server.submit(reqs[0])]
+            if leader == leader_slow:
+                time.sleep(0.3)
+            futs += [server.submit(r) for r in reqs[1:]]
+            skewed += [f.result(60)["y"].numpy() for f in futs]
+    out["skewed"] = np.concatenate(skewed)
+    try:
+        InferenceServer.from_artifact(art, mesh=served, batch_sizes=(2,), pipeline_depth=2)
+        out["depth_refused"] = np.array(False)
+    except ValueError as e:
+        out["depth_refused"] = np.array("pipeline_depth=1" in str(e))
+
+    # 3. MoE top-2 on (data 2, expert 2): loss and the expert gradients
+    em = make_mesh_nd((2, 2), ("data", "expert"), device_type="cpu")
+    moe = MoEClassifier(num_experts=8, dim=16, num_classes=5, num_selected=2)
+    load_jax_params(moe, _nest(inputs, "moe"))
+    full = {"tokens": torch.from_numpy(inputs["moe_tokens"]),
+            "labels": torch.from_numpy(inputs["moe_labels"])}
+    params_sh, batch_sh = make_moe_shardings(em, moe, full)
+    shard_moe_params(moe, em, params_sh)
+    loss = moe_loss(moe, {k: from_full(v, em, batch_sh[k]) for k, v in full.items()})
+    loss.backward()
+    sw = moe.switch
+    out["moe_loss"] = loss.detach().numpy()
+    for name, p in (("w_in", sw.w_in), ("w_out", sw.w_out), ("router", sw.router.weight),
+                    ("dense_0", moe.dense_0.weight)):
+        out[f"moe_grad/{name}"] = p.grad.full_tensor().numpy()
+    out["moe_local_experts"] = np.array(sw.w_in.to_local().shape[0])
+    return out
 
 
 def main():
