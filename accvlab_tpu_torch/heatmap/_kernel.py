@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .._native_build import build_cuda_lib
+from ..tools import launch_counts
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "draw_heatmap.cu")
 # -fmad=false pins the exact exp against multiply-add contraction (the
@@ -39,13 +40,13 @@ MAX_CLASSES = 256
 #: kernel launches per entry point (wrapper name -> count); "bare" counts the
 #: launches made through :func:`launch_draw` / :func:`launch_gaussians`
 #: directly, outside every entry point
-LAUNCHES = {
+LAUNCHES = launch_counts.register({
     "draw_heatmap_batched": 0,
     "draw_heatmap_batched_classwise": 0,
     "draw_heatmap": 0,
     "draw_gaussians": 0,
     "bare": 0,
-}
+})
 
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()

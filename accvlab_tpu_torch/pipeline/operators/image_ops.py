@@ -100,7 +100,7 @@ def warp_affine(
     return out[..., 0] if squeeze else out
 
 
-def linear_resize_matrix(in_size: int, out_size: int) -> torch.Tensor:
+def linear_resize_matrix(in_size: int, out_size: int, device=None) -> torch.Tensor:
     """``(out_size, in_size)`` float32 weights of a linear resize along one
     axis: what ``jax.image.resize(method="linear", antialias=False)``
     computes (``jax._src.image.scale.compute_weight_mat``, transposed), so
@@ -110,13 +110,16 @@ def linear_resize_matrix(in_size: int, out_size: int) -> torch.Tensor:
     kernel ``max(0, 1 - |sample - j|)`` unscaled (no antialias), each
     output's weights divided by their sum, and zeroed where the sample lies
     outside ``[-0.5, in_size - 0.5]``, in float32 in the same order. Equal
-    sizes give the identity. Built on the CPU; move it to the device once.
+    sizes give the identity. Made on ``device`` (default the CPU) with the
+    same bits on every device: each step is one correctly rounded float32
+    operation, and an output's sum has at most two non-zero terms.
     """
     in_size, out_size = int(in_size), int(out_size)
     # JAX: scale = out / in in float64, its inverse rounded to float32
-    inv_scale = torch.tensor(1.0 / (out_size / in_size), dtype=torch.float32)
-    sample = (torch.arange(out_size, dtype=torch.float32) + 0.5) * inv_scale - 0.5
-    x = torch.abs(sample[None, :] - torch.arange(in_size, dtype=torch.float32)[:, None])
+    inv_scale = float(np.float32(1.0 / (out_size / in_size)))
+    sample = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    x = torch.abs(sample[None, :] - torch.arange(in_size, dtype=torch.float32,
+                                                 device=device)[:, None])
     weights = torch.clamp(1 - torch.abs(x), min=0.0)  # (in, out)
     total = torch.sum(weights, dim=0, keepdim=True)
     eps = float(np.finfo(np.float32).eps)

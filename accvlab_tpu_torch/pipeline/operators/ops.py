@@ -166,7 +166,9 @@ def crop_coordinates(points, min_point: Sequence[float], max_point: Sequence[flo
     """Clip each coordinate into the box. Parity: ``ops.py:128``. The torch
     form takes ``(..., N, D)`` points."""
     if _is_torch(points):
-        np_dtype = torch.empty((), dtype=points.dtype).numpy().dtype  # the bounds in it
+        # the bounds rounded to the points' dtype (numpy's of the same name: no
+        # tensor is made, so the traced device stage reads none on the host)
+        np_dtype = np.dtype(str(points.dtype).removeprefix("torch."))
         lo = [v.item() for v in np.asarray(min_point, np_dtype).reshape(-1)]
         hi = [v.item() for v in np.asarray(max_point, np_dtype).reshape(-1)]
         cols = [points[..., d].clamp(lo[d], hi[d]) for d in range(points.shape[-1])]

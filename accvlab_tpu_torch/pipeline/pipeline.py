@@ -9,8 +9,15 @@ stages:
   batched numpy arrays (strings NUL-padded to the batch max),
 * the **transfer**: the whole batch crosses to the device in packed pinned
   chunks (``hostcopy.start_copy``, one ``non_blocking`` copy per chunk),
-* one **device stage**: the device-placed steps run eagerly, in order, on
-  BATCHED tensors (the JAX package instead traces ``jit(vmap(steps))``),
+* one **device stage**: the device-placed steps, in order, on BATCHED
+  tensors (the JAX package traces ``jit(vmap(steps))``). The first
+  :data:`EAGER_BATCHES_PER_SPEC` batches of a leaf spec run them eagerly and
+  record their random draws; later batches of the spec run them as one
+  traced program through :func:`..tools.program_cache.shared_jit` (on the
+  card a CUDA graph, replayed), shared with every structurally identical
+  pipeline of the process. A pipeline whose device steps equal, by type and
+  state, those of one that built the spec's program already runs that
+  program from the spec's first batch, with no trace,
 * a **prefetch ring**: a background thread keeps ``prefetch_queue_depth``
   host batches ready, overlapping host work with the device.
 
@@ -46,10 +53,14 @@ of the global batch, a ``DTensor`` that is ``Shard(0)`` over ``data``
 
 from __future__ import annotations
 
+import enum
+import hashlib
 import queue
 import threading
 import time
+import types
 import warnings
+from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence, Union
 
@@ -57,8 +68,16 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import _draws
 from .._device import F32MatmulScope, resolve_device
 from ..parallel.mesh import mesh_device, shard_batch
+from ..tools.program_cache import (
+    find_program,
+    keep_program,
+    program_cache_stats,
+    program_text,
+    shared_jit,
+)
 from .dtypes import DType
 from .inputs.base import CallableBase, IterableBase, SampleInfo
 from .processing_steps.pipeline_step_base import BatchLevelStepBase, PipelineStepBase
@@ -70,6 +89,64 @@ from .sample_data_group import SampleDataGroup
 _PACK_FIELD_MAX_BYTES = 32 << 20
 # how long reset()/set_state() wait for a producer to finish its batch
 _HALT_TIMEOUT_S = 60.0
+#: the batches of a leaf spec that run the device steps eagerly before the
+#: spec's program is traced and built: a spec seen fewer times never pays
+#: for a trace (seconds on the host for a stage of a few thousand operators)
+EAGER_BATCHES_PER_SPEC = 3
+# the leaf specs a pipeline remembers, with their programs (the least
+# recently seen are dropped): the process-global cache is as bounded
+_SPECS_MAX = 64
+_NOT_READ = object()
+_HEAP_TYPE = 1 << 9  # Py_TPFLAGS_HEAPTYPE: a class defined in Python
+
+
+def _value_key(obj, _path: tuple = ()):
+    """A hashable key of ``obj`` by value: scalars, dtypes and enums as they
+    are, tensors and arrays by dtype, shape, device and a digest of their
+    bytes, containers item by item, and an instance of a class defined in
+    Python as its class (the object itself) and its attributes. Classes and
+    functions without a closure are keyed by identity, and the key holds
+    them. Raises ``TypeError`` for state it cannot key by value: a closure,
+    a bound method, an object of a C type (a lock, a ``functools.partial``),
+    a cycle."""
+    if obj is None or isinstance(obj, (bool, int, float, complex, str, bytes, np.generic)):
+        return (type(obj), repr(obj))
+    if isinstance(obj, (torch.dtype, torch.device, np.dtype)):
+        return (type(obj), str(obj))
+    if isinstance(obj, enum.Enum):
+        return (type(obj), obj.name)
+    if isinstance(obj, (type, types.BuiltinFunctionType, np.ufunc)) or (
+            isinstance(obj, types.FunctionType) and obj.__closure__ is None):
+        return obj
+    if isinstance(obj, torch.Tensor):
+        t = obj.detach().cpu().contiguous().reshape(-1)
+        return (torch.Tensor, str(t.dtype), tuple(obj.shape), str(obj.device),
+                hashlib.sha256(t.view(torch.uint8).numpy().tobytes()).hexdigest())
+    if isinstance(obj, np.ndarray):
+        if obj.dtype.hasobject:
+            raise TypeError("an object array")
+        return (np.ndarray, str(obj.dtype), obj.shape,
+                hashlib.sha256(np.ascontiguousarray(obj).tobytes()).hexdigest())
+    if id(obj) in _path or len(_path) > 32:
+        raise TypeError(f"a cycle through a {type(obj).__name__}")
+    path = _path + (id(obj),)
+    if isinstance(obj, (list, tuple)):
+        return (type(obj), tuple(_value_key(x, path) for x in obj))
+    if isinstance(obj, dict):
+        return (type(obj), tuple((_value_key(k, path), _value_key(v, path))
+                                 for k, v in obj.items()))
+    if isinstance(obj, (set, frozenset)):
+        return (type(obj), tuple(sorted((_value_key(x, path) for x in obj), key=repr)))
+    cls = type(obj)
+    if not all(c is object or c.__flags__ & _HEAP_TYPE for c in cls.__mro__):
+        raise TypeError(f"a {cls.__name__}, whose state is not its attributes")
+    state = dict(getattr(obj, "__dict__", {}))
+    for c in cls.__mro__:
+        names = c.__dict__.get("__slots__", ())
+        for n in [names] if isinstance(names, str) else names:
+            if n not in ("__dict__", "__weakref__") and hasattr(obj, n):
+                state[n] = getattr(obj, n)
+    return (cls, _value_key(state, path))
 
 
 def _split_steps(steps: Sequence[PipelineStepBase]):
@@ -127,27 +204,6 @@ class _DeviceStage(nn.Module):
                 sdg = module(sdg)
         ctx.finish()
         return tuple(sdg.get_data())
-
-
-def _step_of(node) -> str:
-    """The device step a node of the exported stage belongs to."""
-    stack = node.meta.get("nn_module_stack") or {}
-    names = [path.split(".")[-1] for path, _ in stack.values()]
-    return next((n for n in reversed(names) if n), "")
-
-
-def program_text(ep) -> str:
-    """One line per node of an exported program: its name, dtype and shape,
-    the call, and the device step that made it."""
-    lines = []
-    for node in ep.graph.nodes:
-        val = node.meta.get("val")
-        spec = ""
-        if isinstance(val, torch.Tensor):
-            spec = f" : {str(val.dtype).replace('torch.', '')}{list(val.shape)}"
-        step = _step_of(node)
-        lines.append(f"{node.format_node()}{spec}" + (f"  # {step}" if step else ""))
-    return "\n".join(lines)
 
 
 class PipelineDefinition:
@@ -378,8 +434,17 @@ class TorchPipeline:
         # the last device-stage call's leaf specs and draw schedule (what
         # device_program_text/export_device_program trace), and the texts
         self._last_device_spec = None
-        self._program_cache: dict = {}  # the last spec's ExportedProgram
+        self._export_cache: dict = {}  # the last spec's ExportedProgram
         self._program_text_cache: dict = {}
+        # per leaf spec, the least recently seen first: [batches seen, draw
+        # schedule, program] (the program None until built, False when its
+        # trace failed)
+        self._stage_specs: "OrderedDict[tuple, list]" = OrderedDict()
+        # the device steps by value (_value_key), read at the first batch;
+        # None when a step's state cannot be keyed
+        self._steps_value = _NOT_READ
+        # True runs every batch eagerly (the measurement's comparison)
+        self._eager_stage = False
 
     @property
     def device(self) -> torch.device:
@@ -546,21 +611,108 @@ class TorchPipeline:
         batch_idx)``, and with ``echo_factor > 1`` from ``(seed, batch_idx,
         echo_i)``, so the same leaves and indices give the same outputs. The
         leaves are not modified, so a replay may run on them again. Returns
-        the flat output leaves."""
+        the flat output leaves.
+
+        The first :data:`EAGER_BATCHES_PER_SPEC` calls with a leaf spec run
+        the steps eagerly and record their draws; later calls run the shared
+        program of the spec: the same outputs, bit for bit."""
         if not self._device_steps:
             return tuple(leaves)
+        specs = tuple((tuple(x.shape), x.dtype) for x in leaves)
+        entry = self._stage_specs.get(specs)
+        if entry is None:
+            name = self._stage_name(specs)
+            found = find_program(name) if name is not None else None
+            # [batches seen, schedule, program]: a program found is used at once
+            entry = [0, None, None] if found is None else [0, found[1], found[0]]
+            self._stage_specs[specs] = entry
+            while len(self._stage_specs) > _SPECS_MAX:
+                self._stage_specs.popitem(last=False)
+        else:
+            self._stage_specs.move_to_end(specs)
+        entry[0] += 1
+        if entry[2] is None and entry[0] > EAGER_BATCHES_PER_SPEC and not self._eager_stage:
+            entry[2] = self._program(leaves, specs, entry[1])
+        if self._eager_stage or not entry[2]:
+            out, entry[1] = self._run_eager(leaves, batch_idx, echo_i)
+            self._last_device_spec = (specs, entry[1])
+            return out
+        self._last_device_spec = (specs, entry[1])
+        draws = self._draws_on_device(entry[1], self._batch_key(batch_idx, echo_i))
+        with F32MatmulScope():  # the precision the steps' eager run sets
+            return tuple(entry[2](tuple(leaves), draws))
+
+    def _batch_key(self, batch_idx: int, echo_i: int) -> tuple:
+        return (self._seed, batch_idx) if self._echo_factor == 1 else (self._seed, batch_idx,
+                                                                       echo_i)
+
+    def _run_eager(self, leaves: Sequence[torch.Tensor], batch_idx: int, echo_i: int = 0):
+        """The device steps run eagerly, their draws from a
+        :class:`DeviceRandomContext`: ``(outputs, schedule)``."""
         sdg = self._host_out_blueprint.get_empty_like_self()
         sdg.set_data(list(leaves))
-        key = (self._seed, batch_idx) if self._echo_factor == 1 else (self._seed, batch_idx,
-                                                                         echo_i)
-        ctx = DeviceRandomContext(key, device=self._device)
+        ctx = DeviceRandomContext(self._batch_key(batch_idx, echo_i), device=self._device)
         with F32MatmulScope():
             for step in self._device_steps:
                 step.set_random_context(ctx)
                 sdg = step(sdg) if self._check else step._process(sdg)
-        self._last_device_spec = (tuple((tuple(x.shape), x.dtype) for x in leaves),
-                                  tuple(ctx.schedule))
-        return tuple(sdg.get_data())
+        return tuple(sdg.get_data()), tuple(ctx.schedule)
+
+    def _draws_on_device(self, schedule, key) -> tuple:
+        """The batch's draws, made on the host from ``key`` as
+        :class:`DeviceRandomContext` makes them, and moved to the device in
+        one copy from pinned memory (the same bits: each float32 draw rides
+        as its int32 view)."""
+        draws = _draws.make_draws(schedule, key)
+        if self._device.type != "cuda" or not draws:
+            return tuple(draws)
+        flat = torch.cat([d.reshape(-1).view(torch.int32) for d in draws])
+        # the caching host allocator keeps the pinned block until the copy is done
+        dev = flat.pin_memory().to(self._device, non_blocking=True)
+        pieces = torch.split(dev, [d.numel() for d in draws])
+        return tuple(p.view(d.dtype).view(d.shape) for p, d in zip(pieces, draws))
+
+    def _stage_name(self, specs: tuple):
+        """The device stage's name for :func:`..tools.program_cache.find_program`
+        of a leaf spec: the steps and the output blueprint by value, the
+        spec, the device and the format check; ``None`` when a step's state
+        cannot be keyed by value (its program is then found by its trace)."""
+        if self._steps_value is _NOT_READ:
+            try:
+                self._steps_value = _value_key((self._host_out_blueprint,
+                                                tuple(self._device_steps)))
+            except TypeError:
+                self._steps_value = None
+        if self._steps_value is None:
+            return None
+        return ("device stage", self._steps_value, specs, str(self._device), self._check,
+                torch.get_default_dtype())
+
+    def _program(self, leaves, specs: tuple, schedule):
+        """The shared program of a leaf spec and its schedule, kept under the
+        stage's name; ``False`` when its trace failed (the steps then run
+        eagerly). The transferred leaves are not donated: the program's
+        outputs are copies out of its graph's pool, and the executor drops
+        the leaves after the stage anyway."""
+        stage = _DeviceStage(self._host_out_blueprint, self._device_steps, schedule, self._check)
+        # the trace reads only the draws' shapes and dtypes
+        draws = tuple(torch.empty(e["shape"], device=self._device,
+                                  dtype=torch.int32 if e["kind"] == "randint" else torch.float32)
+                      for e in schedule)
+
+        def device_stage(leaves, draws):
+            return stage(leaves, draws)
+
+        # the name a declined trace's warning gives
+        device_stage.__qualname__ = "device stage (" + ", ".join(
+            type(s).__name__ for s in self._device_steps) + ")"
+        program = shared_jit(device_stage, (tuple(leaves), draws))
+        if program is device_stage:  # the trace failed: the steps run as written, eagerly
+            return False
+        name = self._stage_name(specs)
+        if name is not None:
+            keep_program(name, program, schedule)
+        return program
 
     # ------------------------------------------------------------------ #
     # Device program: text and serving export                            #
@@ -585,8 +737,8 @@ class TorchPipeline:
         per spec."""
         specs, schedule = self._device_spec()
         key = (specs, repr(schedule))
-        if self._program_cache.get("key") == key:
-            return self._program_cache["program"], schedule
+        if self._export_cache.get("key") == key:
+            return self._export_cache["program"], schedule
         stage = _DeviceStage(self._host_out_blueprint, self._device_steps, schedule, self._check)
         # uint32 leaves (the DCT wire's packed exceptions) enter as their
         # int32 bits: torch.export's serializer (torch 2.11) has no uint32
@@ -598,7 +750,7 @@ class TorchPipeline:
                       for e in schedule)
         with torch.no_grad():
             ep = torch.export.export(stage, (leaves, draws), strict=False)
-        self._program_cache = {"key": key, "program": ep}
+        self._export_cache = {"key": key, "program": ep}
         return ep, schedule
 
     def device_program_text(self, optimized: bool = False) -> str:
@@ -979,17 +1131,21 @@ class TorchPipeline:
         return None if n is None else int(n) * self._echo_factor
 
     def stats(self) -> dict:
-        """Live throughput/occupancy counters (the JAX executor's keys,
-        without ``program_cache``, plus ``transfers``): ``produced`` (host
-        batches built) / ``consumed`` (batches delivered, ``echo_factor`` per
-        host batch), ``transfers`` (host-to-device transfers, one per host
-        batch), ``producer_busy_s``, ``producer_blocked_s``,
-        ``consumer_wait_s``, ``device_stage_s`` (transfer + enqueue of the
-        device steps; device work is asynchronous),
+        """Live throughput/occupancy counters (the JAX executor's keys plus
+        ``transfers``): ``produced`` (host batches built) / ``consumed``
+        (batches delivered, ``echo_factor`` per host batch), ``transfers``
+        (host-to-device transfers, one per host batch), ``producer_busy_s``,
+        ``producer_blocked_s``, ``consumer_wait_s``, ``device_stage_s``
+        (transfer + enqueue of the device stage: the eager steps, or the
+        program's copies and replay, with its trace and capture when a spec
+        first goes through it; device work is asynchronous),
         ``queue_depth``/``queue_size``, ``bytes_per_batch`` (of the last
-        transfer) and ``input_bound_frac``; with an ``ImageDecoder`` among
-        the host steps (thread workers only), ``decoded_by``: the images
-        each decoder took."""
+        transfer), ``input_bound_frac`` and ``program_cache``, the
+        process-global shared-program cache's ``{hits, misses, declined,
+        size}`` (:func:`..tools.program_cache_stats`; a rebuilt pipeline's
+        device stage shows as a hit); with an ``ImageDecoder`` among the
+        host steps (thread workers only), ``decoded_by``: the images each
+        decoder took."""
         wait = self._stat_consumer_wait_s
         dev = self._stat_device_stage_s
         denom = wait + dev
@@ -1005,6 +1161,7 @@ class TorchPipeline:
             "queue_size": self._queue.qsize(),
             "bytes_per_batch": self._stat_transfer_bytes,
             "input_bound_frac": (wait / denom) if denom > 0.0 else 0.0,
+            "program_cache": program_cache_stats(),
             **self._decoder_counts(),
         }
 

@@ -45,6 +45,7 @@ from typing import Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .pipeline_step_base import BatchLevelStepBase, PipelineStepBase
 from .wire_compression import _EXC_BITS, _zigzag, optimal_width_from_fits
@@ -651,8 +652,11 @@ class DCTWireUnpacker(PipelineStepBase):
        :func:`~..operators.image_ops.linear_resize_matrix` weights (zero
        columns beyond the crop), round half to even, clip, uint8.
 
-    Constant tensors (basis, de-zigzag order, resize weights) are made once
-    per device. Constructor arguments must match the paired
+    Constant tensors (basis, de-zigzag order) are made once per device; the
+    resize weights, megabytes at bench.py's size, are made on the device in
+    each call (a few elementwise kernels), so that the traced stage
+    (:mod:`...tools.program_cache`) carries kilobytes of constants.
+    Constructor arguments must match the paired
     :class:`DCTWirePacker`. Outputs: ``image_name`` as uint8 ``(B, out_h,
     out_w)`` luma plus ``<image_name>_cbcr`` uint8 ``(B, out_h/2, out_w/2,
     2)``, the YUV 4:2:0 wire's layout.
@@ -679,7 +683,11 @@ class DCTWireUnpacker(PipelineStepBase):
         return f"{self._image_name}_cbcr"
 
     def _constants(self, device: torch.device) -> dict:
-        """Per-device constant tensors, made on first use."""
+        """Per-device constant tensors, made on first use. Those made while
+        the stage is traced are fake tensors and are not kept: a later
+        eager call would compute with them."""
+        from torch._subclasses.fake_tensor import is_fake
+
         key = (device.type, device.index)
         c = self._consts.get(key)
         if c is None:
@@ -690,18 +698,8 @@ class DCTWireUnpacker(PipelineStepBase):
                  # the bit order of np.packbits: the byte's bit 7 first
                  "shifts": torch.arange(7, -1, -1, dtype=torch.uint8, device=device),
                  "planes": torch.arange(_MAX_BITS + 1, dtype=torch.int16, device=device)}
-            for cs in _COMPSETS:
-                bh, bwp = geo.grid[cs]
-                rows = geo.blocks_c[0] * m if cs == "c" else bh * m
-                (ch, cw), (oh, ow) = geo.crop[cs], geo.out[cs]
-                # weights for the uncropped plane: zero beyond the crop
-                wh = torch.zeros((oh, rows), dtype=torch.float32)
-                wh[:, :ch] = linear_resize_matrix(ch, oh)
-                ww = torch.zeros((bwp * m, ow), dtype=torch.float32)
-                ww[:cw] = linear_resize_matrix(cw, ow).T
-                c[f"resize_h_{cs}"] = wh.to(device)
-                c[f"resize_w_{cs}"] = ww.to(device)
-            self._consts[key] = c
+            if not is_fake(c["idct"]):
+                self._consts[key] = c
         return c
 
     # ------------------------------------------------------------------ #
@@ -806,8 +804,14 @@ class DCTWireUnpacker(PipelineStepBase):
     def _resize(self, plane: torch.Tensor, cs: str) -> torch.Tensor:
         """Crop + linear resize of ``(..., rows, cols)`` float planes to
         ``geo.out[cs]``, rounded half to even and clipped: uint8."""
-        c = self._constants(plane.device)
-        out = torch.matmul(c[f"resize_h_{cs}"], torch.matmul(plane, c[f"resize_w_{cs}"]))
+        geo, dev = self._geo, plane.device
+        _, bwp = geo.grid[cs]
+        rows = geo.blocks_c[0] * geo.m if cs == "c" else geo.grid[cs][0] * geo.m
+        (ch, cw), (oh, ow) = geo.crop[cs], geo.out[cs]
+        # weights for the uncropped plane: zero beyond the crop
+        wh = F.pad(linear_resize_matrix(ch, oh, dev), (0, rows - ch))
+        ww = F.pad(linear_resize_matrix(cw, ow, dev).T, (0, 0, 0, bwp * geo.m - cw))
+        out = torch.matmul(wh, torch.matmul(plane, ww))
         return out.round_().clamp_(0.0, 255.0).to(torch.uint8)
 
     def coefficients(self, get) -> dict:

@@ -20,10 +20,12 @@
 bitwise those of an uninterrupted run, on a mesh of one rank (the card or
 the CPU) or of several gloo ranks.
 
-JAX builds the step with ``shared_jit`` (the restarted run reuses the
-compiled program, ``examples/preemptible_training.py:151-166``). Eager torch
-compiles nothing, so there is nothing to share; the port's program cache
-waits for a CUDA graph of the device stage (ROADMAP.md §1 item 3).
+The restarted run's rebuilt pipeline reuses the first run's traced device
+stage (:mod:`.tools.program_cache`; on the card its CUDA graph): :func:`main`
+asserts that the resumed run's stage is a cache hit. JAX also builds the
+train step with ``shared_jit`` (``examples/preemptible_training.py:151-166``);
+here the step stays an ``nn.Module`` with a ``torch.optim`` optimizer,
+whose state is not a tensor tree, so it runs eagerly (ROADMAP.md §3).
 
 JAX's elastic stanza resumes the same global batch onto half the devices of
 one process. With one process per device, two ranks' stream positions
@@ -68,6 +70,7 @@ from .pipeline.processing_steps import (
     ImageToTileSizePadder,
     PhotoMetricDistorter,
 )
+from .tools.program_cache import program_cache_stats
 
 NUM_CLASSES = 3
 HW = (24, 32)
@@ -235,7 +238,9 @@ def main(num_steps: int = 6, preempt_after: int = 3, workdir: Optional[str] = No
     steps (checkpointing every step) and the resumed run, on
     ``make_mesh(device_type=device_type)``. Every rank of a group calls this
     with the same ``workdir``, a directory they share. Asserts the resumed
-    tail bitwise; returns the losses and parameters of each run."""
+    tail bitwise and that the resumed run's device stage was a hit of the
+    shared-program cache; returns the losses and parameters of each run, and
+    the cache's counters over the resumed run (``resume_program_cache``)."""
     mesh = make_mesh(device_type=device_type)
     if workdir is None and dist.get_world_size() > 1:
         raise ValueError("a run of several ranks needs a workdir that they share")
@@ -250,13 +255,19 @@ def main(num_steps: int = 6, preempt_after: int = 3, workdir: Optional[str] = No
         pre_losses, pre_params = train(mesh, batch_size, num_steps, ckpt_dir=workdir,
                                        ckpt_every=1, preempt_after=preempt_after)
         ckpt = latest_checkpoint(workdir)
+        before = program_cache_stats()
         res_losses, res_params = train(mesh, batch_size, num_steps, resume_from=ckpt)
+        after = program_cache_stats()
+        cache = {k: after[k] - before[k] for k in ("hits", "misses", "declined")}
+        assert cache == {"hits": 1, "misses": 0, "declined": 0}, (
+            f"the resumed run's device stage did not reuse the shared program: {cache}")
         assert torch.equal(torch.stack(ref_losses[preempt_after:]), torch.stack(res_losses)), (
             "the resumed losses differ from the uninterrupted run's")
         for k, v in ref_params.items():
             assert torch.equal(v, res_params[k]), f"parameter {k} differs after the resume"
         return {"ref_losses": ref_losses, "pre_losses": pre_losses, "res_losses": res_losses,
-                "pre_params": pre_params, "res_params": res_params, "checkpoint": ckpt}
+                "pre_params": pre_params, "res_params": res_params, "checkpoint": ckpt,
+                "resume_program_cache": cache}
     finally:
         torch.backends.cudnn.deterministic = cudnn
         if owns_dir:

@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from .._native_build import build_cuda_lib
+from ..tools import launch_counts
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "auction_matching.cu")
 # -fmad=false with the source's __fadd_rn/__fsub_rn: the bid's roundings are
@@ -22,7 +23,7 @@ SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "auction_
 NVCC_EXTRA = ["-fmad=false"]
 
 #: kernel launches (successful, non-empty batches)
-LAUNCHES = {"batched_auction_matching": 0}
+LAUNCHES = launch_counts.register({"batched_auction_matching": 0})
 
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()

@@ -1,16 +1,53 @@
-"""Device launches of a callable, counted with ``torch.profiler`` on the card.
+"""Device launches of a callable, counted with ``torch.profiler`` on the card,
+and the registry of the hand kernels' own launch counters.
 
 :func:`kernel_counts` is the launch count that ``chip_smoke.py``'s phase
 lines and ``scripts/torch_bench_polyline.py`` report. It needs a CUDA device.
+
+Each hand kernel's wrapper adds one to its counter (a dict of name -> count,
+:func:`register`-ed when its module is imported) where it launches the
+kernel. A CUDA graph launches the kernels that its capture recorded without
+calling the wrappers, so :mod:`.program_cache` takes the counts a capture
+made (:func:`snapshot`, :func:`since`) and adds them at every replay
+(:func:`add`).
 """
 
 from __future__ import annotations
 
 import time
+from typing import List, Sequence, Tuple
 
 WARMUP = 3  # traced and discarded steps before each counted one
 READINGS = 3  # readings per call; the median is kept
 GAP_S = 0.05  # idle host time on each side of the counted step's window edges
+
+#: the hand kernels' launch counters
+COUNTERS: List[dict] = []
+
+
+def register(counter: dict) -> dict:
+    """Add a wrapper's launch counter to the registry; returns it."""
+    COUNTERS.append(counter)
+    return counter
+
+
+def snapshot() -> List[dict]:
+    """A copy of every registered counter."""
+    return [dict(c) for c in COUNTERS]
+
+
+def since(before: List[dict]) -> List[Tuple[dict, str, int]]:
+    """``(counter, name, launches)`` of every count that grew since
+    ``before`` (a :func:`snapshot`)."""
+    return [(c, k, c[k] - b.get(k, 0)) for c, b in zip(COUNTERS, before)
+            for k in c if c[k] != b.get(k, 0)]
+
+
+def add(deltas: List[Tuple[dict, str, int]], times: int = 1) -> None:
+    """Add ``times`` each of ``deltas`` (from :func:`since`) to their
+    counters."""
+    for c, k, n in deltas:
+        c[k] += times * n
 
 
 def launches(counts: dict) -> int:
@@ -27,7 +64,7 @@ def median_reading(readings: list[dict]) -> dict:
     return {**chosen, "readings": [launches(r) for r in readings]}
 
 
-def kernel_counts(fn) -> dict:
+def kernel_counts(fn, names: Sequence[str] = ()) -> dict:
     """``fn()`` under torch.profiler: its device kernels, memsets and
     copies, counted from the profiler's CUDA rows, and ``busy_ms``, the sum
     of their device times (gaps between them left out).
@@ -41,7 +78,8 @@ def kernel_counts(fn) -> dict:
     discarded step ends, and the window closes ``GAP_S`` after it. Each
     reading traces ``WARMUP`` discarded steps before the counted one, and
     :func:`median_reading` of ``READINGS`` readings is kept (``fn`` runs
-    ``READINGS * (WARMUP + 1)`` times)."""
+    ``READINGS * (WARMUP + 1)`` times). ``names``: the reading's
+    ``"named"`` counts the kernels whose name holds each of them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -58,10 +96,14 @@ def kernel_counts(fn) -> dict:
                 if i >= WARMUP - 1:
                     time.sleep(GAP_S)
                 prof.step()
-        counts = {"kernels": 0, "memsets": 0, "copies": 0, "busy_ms": 0.0}
+        counts = {"kernels": 0, "memsets": 0, "copies": 0, "busy_ms": 0.0,
+                  "named": dict.fromkeys(names, 0)}
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:
                 continue
+            for n in names:
+                if n in e.key:
+                    counts["named"][n] += e.count
             kind = ("copies" if e.key.startswith("Memcpy") else
                     "memsets" if e.key.startswith("Memset") else "kernels")
             counts[kind] += e.count

@@ -29,18 +29,27 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              quantized coefficients with dctpack.cpp in the "dp16" band
              grouping; the card unpacks them, runs the IDCT and the resize,
              then the colour conversion; batch 8, heatmap 10x64x176, T=32)
-             through run(): 2 warm-up batches, then 3 timed windows of 100
-             batches (frames/s per window and their median); bytes per batch,
-             the grouping and the packer's choices and host seconds; outputs
-             checked, one batch recomputed with the plain heatmap version and
-             compared;
-   main_yuv — one window of 100 batches of the same pipeline on the YUV
-             4:2:0 wire (decoded by WIRE_DECODER, libjpeg at its 6/8 DCT scale,
-             straight to 256x704 planes; the line counts the frames each
-             decoder took; the plane codec on the host, unpack + colour
-             conversion on the card), outputs checked;
-5. main_frames — one window of 100 batches of the same pipeline on raw RGB
-             frames (the earlier slices' path), for a same-call comparison;
+             through run(): 4 warm-up batches (the device stage's shared
+             program built and its CUDA graph captured), then 4 windows of
+             TURN_BATCHES in TURNS on the one pipeline: the device stage
+             replayed through the shared program, or eager (frames/s per
+             window, the medians of each mode, the consumer's ms per batch);
+             per mode the ATen operators the consumer dispatches per batch,
+             the launches per batch (profiler) and the device busy share;
+             bytes per batch, the grouping and the packer's choices and host
+             seconds; outputs checked, one batch recomputed with the plain
+             heatmap version and compared;
+   main_yuv — the same windows of the same pipeline on the YUV 4:2:0 wire
+             (decoded by WIRE_DECODER, libjpeg at its 6/8 DCT scale, straight
+             to 256x704 planes; the line counts the frames each decoder took;
+             the plane codec on the host, unpack + colour conversion on the
+             card), outputs checked;
+5. main_frames — the same windows of the same pipeline on raw RGB frames
+             (the earlier slices' path), for a same-call comparison;
+   main_unique — the DCT wire with content that does not repeat (one JPEG
+             set per sample): 2 warm-up batches, then windows of
+             TURN_BATCHES["unique"] in TURNS (frames/s, the consumer's ms)
+             and the leaf specs' repeat share;
    dct_wire — one full-width host batch of the DCT wire decoded on the card
              and on the CPU: the integer coefficients (after the exceptions,
              the DC predictor, de-zigzag and dequantise) bitwise equal, the
@@ -65,8 +74,11 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              of 372x1024, 32 boxes of 10 classes; batch 8 -> 256x704,
              heatmaps 10x64x176) on its DCT wire (optimize_band_groups, 16
              groups), through StructuredOutputIterator.CreateAsDataLoaderObject:
-             2 warm-up batches, one timed window of DET2D_BATCHES (frames/s),
-             the epoch's end and the next epoch's first batch, timed by the
+             2 warm-up batches, then DET2D_BATCHES in 4 windows in TURNS
+             (the device stage through the shared program or eager:
+             frames/s and the consumer's ms per window, the medians of each
+             mode, the leaf specs' repeat share), the epoch's end and the
+             next epoch's first batch, timed by the
              port's Stopwatch and traced (build/det2d_trace.json: every span
              and instant name present, each span's start before its end);
              the rasterizer once per delivered batch; batch 0 recomputed on
@@ -89,9 +101,9 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
    workers — the YUV wire (WIRE_DECODER) and the DCT wire, each with
              worker_mode="thread" and "process": one window of WORKER_BATCHES
              each (frames/s, the consumer's ms per batch, producer busy);
-             process batch 0 bitwise the thread batch 0; a process-mode
-             get_state after the window, a fresh process pipeline and
-             set_state continue bitwise for 3 batches;
+             process batch 0 bitwise the thread batch 0; on each wire a
+             process-mode get_state after the window, a fresh process
+             pipeline and set_state continue bitwise for 3 batches;
 8. train_parity — a seeded CenterNet (width 64) on make_example_batch, on
              the card and on the CPU (the port's plain path): loss, heads
              and parameter gradients within the bf16 tolerances stated in
@@ -123,7 +135,9 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
 12. petr   — train_petr_e2e's streaming loop at that width, fed in drive
              order by the YUV-wire pipeline (SequenceSampler, 160 drives of
              40 frames; 8 x 6 cameras of 256x704): 10 steps of the example's
-             loop (a loss read back per step), 10 fed steps timed with CUDA
+             loop (a loss read back per step; the last 8 timed: the first
+             two build the model and the pipeline's device program), 10 fed
+             steps timed with CUDA
              events, one step under the sync check, 10 steps on a cached
              batch; every loss finite, memory_ref non-zero after step 1,
              peak memory, and the example's evaluation (decode_detections_3d,
@@ -234,14 +248,37 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              non-zero, ms per step and camera-frames/s, no hand kernel
              launched) and one under the sync check; a SharedGopStore round
              trip with one spawned process;
-25. the {"kernels": [...]} line, the nvidia-smi line, and last the result
+25. program_cache — the shared-program cache (tools/program_cache.py) on the
+             card: the unit checks of tests/test_torch_program_cache_cuda.py
+             (CACHE_UNIT_CHECKS: a replay bitwise the eager function, one
+             graph per precision context, donation freeing storage, two
+             threads sharing one executable, replays counting the
+             rasterizer's launches as the profiler sees them), run right
+             after the goldens, where the profiler still records (late in
+             the process it has recorded no device rows at all); then, after
+             clear_program_cache(), bench.py's main path built twice,
+             CACHE_BATCHES batches each, every delivered batch bitwise the
+             eager stage on its leaves and key: the first build a miss (a
+             spec's EAGER_BATCHES_PER_SPEC eager batches, then trace and
+             capture), the rebuilt one a hit that traces and captures
+             nothing and runs each such spec's program from its first batch,
+             with the seconds from the build to the first batch through the
+             program, the trace and capture seconds and the graphs' pool
+             bytes; the preemptible trainer's resumed stage (the mesh phase)
+             a hit;
+26. the {"kernels": [...]} line, the nvidia-smi line, and last the result
    line {"ok": true, "device": {...}}.
 
-The pipeline phases (main, main_yuv, main_frames, echo, det2d, workers, train, input_idle,
-petr, export, tools, mesh) each count the rasterizer's launches from 0 and fail unless it ran
-once per delivered pipeline batch; the kernels line's draw_gaussians launches are main's,
-det2d's, export's, tools' and mesh's. The encoded JPEGs are kept in build/bench_cache (bench.py's
-cache format) for the phases after the first.
+The pipeline phases (main, main_yuv, main_frames, main_unique, echo, det2d, workers, train,
+input_idle, petr, export, tools, mesh) each count the rasterizer's launches from 0 and fail
+unless it ran once per delivered pipeline batch (a replayed CUDA graph counts the launches
+its capture recorded; main, main_yuv and main_frames hold that count against the rasterizer
+kernels the profiler sees in a batch, through the program and eager); the kernels line's
+draw_gaussians launches are main's, det2d's, export's, tools' and mesh's. Every phase that
+runs pipelines is followed by a {"program_cache_of": ...} line, the shared-program cache's
+counters over it, and fails if a device stage declined the shared program. The encoded
+JPEGs are kept in build/bench_cache (bench.py's cache format) for the phases after the
+first.
 
 Exits non-zero without a result when torch.cuda.is_available() is false.
 Imports nothing of JAX.
@@ -259,6 +296,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from accvlab_tpu_torch.pipeline.pipeline import EAGER_BATCHES_PER_SPEC
 from accvlab_tpu_torch.tools.launch_counts import kernel_counts
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -272,13 +310,16 @@ SLEEP_CYCLES = 4_000_000  # about 2 ms of the card's clock: longer than any enqu
 DECODE_SLEEP_CYCLES = 40_000_000
 N_TIMED = 50
 N_TIMED_PLAIN = 10
-MAIN_WINDOWS = 3
-MAIN_WINDOW_BATCHES = 100
+# the main path's windows, taken in turns on one pipeline: the device stage
+# through the shared program (a CUDA graph replay) and eager
+TURNS = ("program", "eager", "eager", "program")
+RASTERIZER_KERNEL = "draw_heatmap_kernel"  # the __global__ function of SOURCE
+TURN_BATCHES = {"dct": 30, "yuv": 24, "frames": 30, "unique": 6}
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 TRAIN_FRESH_STEPS = 20
 TRAIN_CACHED_STEPS = 30
-IDLE_ITERS = 50
-ECHO_BATCHES = 100
+IDLE_ITERS = 20
+ECHO_BATCHES = 30
 RESUME_BATCHES = 3
 PETR_FRESH_STEPS = 10
 PETR_TIMED_STEPS = 10
@@ -313,14 +354,14 @@ AUCTION_SOURCE = "accvlab_tpu_torch/ragged/csrc/auction_matching.cu"
 # the widths of det2d, steps_2d and workers: bench.py's
 WIDTH = {"hw": (372, 1024), "out_hw": (256, 704), "heatmap_hw": (64, 176), "cams": 6,
          "batch": 8}
-DET2D_BATCHES = 100  # det2d's timed window
+DET2D_BATCHES = 60  # det2d's timed window
 STEPS_2D_BATCHES = 5
 # about 400 ms of the card's clock: longer than the host takes to enqueue
 # steps_2d's device stage (45-189 ms on an H100 host)
 STEPS_2D_SLEEP_CYCLES = 800_000_000
-# each workers window: four windows and four process pools (9-14 s each
+# each workers window: four windows and four process pools (9-22 s each
 # to start on an 8-core H100 host) make this phase the script's dearest
-WORKER_BATCHES = 30
+WORKER_BATCHES = 8
 # det2d's images, card against CPU: both sides run the port's own DCT
 # decode, whose planes agree (dct_wire), so only the colour conversion, the
 # warp and the distortion's float order differ: within 1 uint8 level, in at
@@ -725,6 +766,176 @@ def timed_windows(pipe, windows: int, batches: int):
     return window_s, out
 
 
+def turn_windows(pipe, batches: int):
+    """Windows of ``batches`` run() calls in TURNS on one pipeline: the
+    device stage through the shared program, or eager (the executor's eager
+    branch, every batch). Returns per mode each window's seconds and the
+    consumer's ms per batch (``device_stage_s / consumed``) with its host
+    ms per batch in the executor's methods (``split_ms``: ``_transfer``;
+    ``run_device_stage``, and inside it ``_draws_on_device`` and
+    ``_run_eager``, which runs only for a spec's first batches in the
+    program's windows), and the last output."""
+    names = ("_transfer", "run_device_stage", "_draws_on_device", "_run_eager")
+    spent = dict.fromkeys(names, 0.0)
+
+    def timed(name):
+        fn = getattr(pipe, name)
+
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return call
+
+    res, out = {"program": [], "eager": []}, None
+    for name in names:
+        setattr(pipe, name, timed(name))
+    try:
+        for mode in TURNS:
+            pipe._eager_stage = mode == "eager"
+            before, start = pipe.stats(), dict(spent)
+            t0 = time.perf_counter()
+            for _ in range(batches):
+                out = pipe.run()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            after = pipe.stats()
+            consumer_s = after["device_stage_s"] - before["device_stage_s"]
+            res[mode].append({"s": sec, "consumer_ms": consumer_s / batches * 1e3,
+                              "split_ms": {k: (spent[k] - start[k]) / batches * 1e3
+                                           for k in names}})
+    finally:
+        pipe._eager_stage = False
+        for name in names:
+            delattr(pipe, name)
+    return res, out
+
+
+def aten_ops(fn) -> int:
+    """The ATen operators that ``fn()`` dispatches on this thread (a
+    ``TorchDispatchMode`` count, views included)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    torch.cuda.synchronize()
+    return Count.n
+
+
+def stage_modes(pipe, wire: str, windows: dict, batch: int, cams: int) -> dict:
+    """Per mode (program, eager): frames/s and ms per batch of each window
+    (their medians), the consumer's ms per batch, the ATen operators the
+    consumer dispatches per batch, the device launches per batch
+    (kernel_counts) and the device busy share (busy ms over the windows'
+    ms per batch). In both modes the rasterizer's kernels that the profiler
+    saw in the counted batch must equal its launch counter's growth in that
+    batch (a replay calls no wrapper: program_cache adds the capture's
+    counts), and the counter must grow by one in every batch."""
+    from accvlab_tpu_torch.heatmap import LAUNCHES
+
+    out = {}
+    for mode in ("program", "eager"):
+        grew = []
+
+        def counted_run():
+            n0 = LAUNCHES["draw_gaussians"]
+            pipe.run()
+            grew.append(LAUNCHES["draw_gaussians"] - n0)
+
+        pipe._eager_stage = mode == "eager"
+        try:
+            ops = aten_ops(pipe.run)
+            counts = kernel_counts(counted_run, names=(RASTERIZER_KERNEL,))
+        finally:
+            pipe._eager_stage = False
+        seen = counts["named"][RASTERIZER_KERNEL]
+        if set(grew) != {1} or seen != 1:
+            fail(f"{wire} ({mode}): the profiler saw {seen} {RASTERIZER_KERNEL} in a batch; "
+                 f"the launch counter grew by {sorted(set(grew))} per batch")
+        ws = windows[mode]
+        ms = [w["s"] / TURN_BATCHES[wire] * 1e3 for w in ws]
+        out[mode] = {
+            "frames_per_s": float(np.median([batch * cams / (m / 1e3) for m in ms])),
+            "frames_per_s_windows": [batch * cams / (m / 1e3) for m in ms],
+            "ms_per_batch": float(np.median(ms)),
+            "consumer_ms_per_batch": float(np.median([w["consumer_ms"] for w in ws])),
+            "consumer_ms_windows": [w["consumer_ms"] for w in ws],
+            "consumer_split_ms_windows": [w["split_ms"] for w in ws],
+            "aten_ops_per_batch": ops, "launches_per_batch": counts,
+            "device_busy_share": counts["busy_ms"] / float(np.median(ms))}
+    return out
+
+
+def program_cache_delta(before: dict) -> dict:
+    """The shared-program cache's counters since ``before``, and its size."""
+    from accvlab_tpu_torch.tools import program_cache_stats
+
+    now = program_cache_stats()
+    return {**{k: now[k] - before[k] for k in ("hits", "misses", "declined")},
+            "size": now["size"]}
+
+
+def spec_repeats(pipe) -> dict:
+    """The leaf specs that the pipeline's device stage saw (its last
+    _SPECS_MAX): batches, distinct specs, the share of batches whose spec
+    had come before, batches per spec, and the specs with a program."""
+    entries = list(pipe._stage_specs.values())
+    counts = sorted((e[0] for e in entries), reverse=True)
+    n = sum(counts)
+    return {"batches": n, "distinct": len(counts),
+            "repeat_share": (n - len(counts)) / n if n else 0.0, "per_spec": counts,
+            "with_program": sum(1 for e in entries if e[2])}
+
+
+def main_unique_phase(dev, card: str):
+    """bench.py's pipeline on the DCT wire at full width with content that
+    does not repeat (one JPEG set per sample): 2 warm-up batches, then
+    windows of TURN_BATCHES["unique"] in TURNS (program or eager): frames/s
+    and the consumer's ms per window and the leaf specs' repeat share."""
+    from accvlab_tpu_torch.bench_pipeline import build_pipeline
+
+    batch, cams = WIDTH["batch"], WIDTH["cams"]
+    n = (2 + len(TURNS) * TURN_BATCHES["unique"]) * batch
+    t0 = time.perf_counter()
+    pipe = build_pipeline(batch_size=batch, device=dev, cache_dir=CACHE_DIR, wire="dct",
+                          num_samples=n, num_unique=n)
+    setup_s = time.perf_counter() - t0
+    try:
+        for _ in range(2):
+            pipe.run()
+        torch.cuda.synchronize()
+        (windows, out), launches = count_launches(
+            lambda: turn_windows(pipe, TURN_BATCHES["unique"]))
+        specs = spec_repeats(pipe)
+    finally:
+        pipe.stop()
+    n_batches = len(TURNS) * TURN_BATCHES["unique"]
+    if launches != n_batches:
+        fail(f"main_unique: draw_gaussians launched {launches} times for {n_batches} batches")
+    check_outputs(out, cams, batch)
+    modes = {}
+    for mode, ws in windows.items():
+        fps = [TURN_BATCHES["unique"] * batch * cams / w["s"] for w in ws]
+        modes[mode] = {"frames_per_s": float(np.median(fps)), "frames_per_s_windows": fps,
+                       "consumer_ms_per_batch": float(np.median([w["consumer_ms"] for w in ws])),
+                       "consumer_ms_windows": [w["consumer_ms"] for w in ws]}
+    emit({"phase": "main_unique", "card": card, "frames_per_s": modes["program"]["frames_per_s"],
+          "eager_frames_per_s": modes["eager"]["frames_per_s"], "turns": list(TURNS),
+          "batches_per_window": TURN_BATCHES["unique"], "stage": modes, "leaf_specs": specs,
+          "draw_gaussians_launches": launches, "setup_s": setup_s,
+          "config": f"DCT wire, 'dp16': 6 cams x 372x1024 q90 JPEG, {n // batch} batches of "
+                    "unique sets (no content repeats), batch 8 -> 256x704"})
+
+
 def packer_of(pipe):
     from accvlab_tpu_torch.pipeline.processing_steps import DCTWirePacker, WirePlanePacker
 
@@ -741,26 +952,30 @@ def main_phase(dev, card: str, wire: str = "dct"):
     kw = dict(batch_size=batch, device=dev, cache_dir=CACHE_DIR, wire=wire)
     if wire == "yuv":
         kw["decoder"] = WIRE_DECODER
-    windows = MAIN_WINDOWS if wire == "dct" else 1
     phase = "main" if wire == "dct" else f"main_{wire}"
     t0 = time.perf_counter()
     pipe = build_pipeline(**kw)
     setup_s = time.perf_counter() - t0
     first = {k: v.clone() for k, v in pipe.run().items()}  # batch 0, kept for the plain recompute
-    pipe.run()
+    for _ in range(EAGER_BATCHES_PER_SPEC):  # the first spec's program built, its graph captured
+        pipe.run()
     torch.cuda.synchronize()
 
-    # back-to-back windows of MAIN_WINDOW_BATCHES batches each, on one
-    # pipeline: frames/s is reported per window, with their median
+    # windows in turns on one pipeline (TURNS): frames/s per window, with the
+    # medians of the program's and the eager stage's
     reset_launch_counts()
-    window_s, out = timed_windows(pipe, windows, MAIN_WINDOW_BATCHES)
-    n_batches = windows * MAIN_WINDOW_BATCHES
+    windows, out = turn_windows(pipe, TURN_BATCHES[wire])
+    n_batches = len(TURNS) * TURN_BATCHES[wire]
     launches = LAUNCHES["draw_gaussians"]
     main_launches = dict(LAUNCHES)
     stats = pipe.stats()
+    specs = spec_repeats(pipe)
     packer = packer_of(pipe)
     wire_stats = packer.last_batch_stats
-    pipe.stop()
+    try:
+        modes = stage_modes(pipe, wire, windows, batch, num_cams)
+    finally:
+        pipe.stop()
     if launches != n_batches:
         fail(f"{phase}: draw_gaussians launched {launches} times for {n_batches} batches")
     check_outputs(out, num_cams, batch)
@@ -796,16 +1011,17 @@ def main_phase(dev, card: str, wire: str = "dct"):
             if v.dtype.is_floating_point:
                 worst[name.split(".")[-1]] = max(worst.get(name.split(".")[-1], 0.0),
                                                  float((v - w).abs().max()))
-    fps = [MAIN_WINDOW_BATCHES * batch * num_cams / w for w in window_s]
-    ms_per_batch = [w / MAIN_WINDOW_BATCHES * 1e3 for w in window_s]
     config = ("DCT wire, 'dp16' grouping: 6 cams x 372x1024 q90 JPEG (16 unique sets) -> "
               "256x704 on the card" if wire == "dct" else
               f"YUV 4:2:0 wire, packed: 6 cams x 372x1024 q90 JPEG (16 unique sets, decoder "
               f"{WIRE_DECODER!r} to 256x704)")
     emit({
-        "phase": phase, "card": card, "wire": wire, "frames_per_s": float(np.median(fps)),
-        "frames_per_s_windows": fps, "ms_per_batch": float(np.median(ms_per_batch)),
-        "ms_per_batch_windows": ms_per_batch, "batches": n_batches,
+        "phase": phase, "card": card, "wire": wire,
+        "frames_per_s": modes["program"]["frames_per_s"],
+        "eager_frames_per_s": modes["eager"]["frames_per_s"],
+        "ms_per_batch": modes["program"]["ms_per_batch"], "turns": list(TURNS),
+        "batches_per_window": TURN_BATCHES[wire], "stage": modes, "batches": n_batches,
+        "leaf_specs": specs,
         "draw_gaussians_launches": launches, "bytes_per_batch": stats["bytes_per_batch"],
         "unpacked_plane_bytes": UNPACKED_PLANE_BYTES, "packer_last_batch": wire_stats,
         "consumer_wait_s": stats["consumer_wait_s"], "device_stage_s": stats["device_stage_s"],
@@ -814,7 +1030,7 @@ def main_phase(dev, card: str, wire: str = "dct"):
         "setup_s": setup_s, **extra,
         "config": config + ", batch 8, heatmap 10x64x176, T=32",
     })
-    return main_launches, float(np.median(fps))
+    return main_launches, modes["program"]["frames_per_s"]
 
 
 def main_frames_phase(dev, card: str):
@@ -823,22 +1039,26 @@ def main_frames_phase(dev, card: str):
     batch, num_cams = 8, 6
     pipe = build_pipeline(batch_size=batch, device=dev, wire="frames")
     try:
-        pipe.run()
-        pipe.run()
+        for _ in range(EAGER_BATCHES_PER_SPEC + 1):  # the spec's program built
+            pipe.run()
         torch.cuda.synchronize()
-        (window_s, out), launches = count_launches(
-            lambda: timed_windows(pipe, 1, MAIN_WINDOW_BATCHES))
+        (windows, out), launches = count_launches(
+            lambda: turn_windows(pipe, TURN_BATCHES["frames"]))
         stats = pipe.stats()
+        specs = spec_repeats(pipe)
+        modes = stage_modes(pipe, "frames", windows, batch, num_cams)
     finally:
         pipe.stop()
-    if launches != MAIN_WINDOW_BATCHES:
-        fail(f"main_frames: draw_gaussians launched {launches} times for "
-             f"{MAIN_WINDOW_BATCHES} batches")
+    n_batches = len(TURNS) * TURN_BATCHES["frames"]
+    if launches != n_batches:
+        fail(f"main_frames: draw_gaussians launched {launches} times for {n_batches} batches")
     check_outputs(out, num_cams, batch)
     emit({"phase": "main_frames", "card": card,
-          "frames_per_s": MAIN_WINDOW_BATCHES * batch * num_cams / window_s[0],
-          "ms_per_batch": window_s[0] / MAIN_WINDOW_BATCHES * 1e3,
-          "batches": MAIN_WINDOW_BATCHES, "draw_gaussians_launches": launches,
+          "frames_per_s": modes["program"]["frames_per_s"],
+          "eager_frames_per_s": modes["eager"]["frames_per_s"],
+          "ms_per_batch": modes["program"]["ms_per_batch"], "turns": list(TURNS),
+          "batches_per_window": TURN_BATCHES["frames"], "stage": modes, "leaf_specs": specs,
+          "batches": n_batches, "draw_gaussians_launches": launches,
           "bytes_per_batch": stats["bytes_per_batch"],
           "input_bound_frac": stats["input_bound_frac"],
           "config": "raw RGB frames (2 unique sets): 6 cams x 372x1024, batch 8 -> 256x704"})
@@ -1378,9 +1598,9 @@ def levels_vs(got: torch.Tensor, want: torch.Tensor, std) -> dict:
 def det2d_phase(dev, card: str):
     """The 2-D detection example's counterpart at bench.py's full width,
     through its StructuredOutputIterator (DataLoader-masked), on its DCT
-    wire: 2 warm-up batches, one timed window of DET2D_BATCHES, the epoch's
-    end and the next epoch's first batch, with the Stopwatch and the trace;
-    batch 0 recomputed on the CPU."""
+    wire: 2 warm-up batches, DET2D_BATCHES in windows in TURNS (program or
+    eager), the epoch's end and the next epoch's first batch, with the
+    Stopwatch and the trace; batch 0 recomputed on the CPU."""
     from accvlab_tpu_torch.heatmap import LAUNCHES, reset_launch_counts
     from accvlab_tpu_torch.object_detection_2d_pipeline import (
         BenchNuScenesProvider,
@@ -1389,7 +1609,8 @@ def det2d_phase(dev, card: str):
     from accvlab_tpu_torch.tools import Stopwatch
 
     batch, cams = WIDTH["batch"], WIDTH["cams"]
-    n_epoch = 2 + DET2D_BATCHES  # the warm-up batches, then the window: one epoch
+    n_epoch = 2 + DET2D_BATCHES  # the warm-up batches, then the windows: one epoch
+    per_window = DET2D_BATCHES // len(TURNS)
     kw = dict(batch_size=batch, wire="dct", image_hw=WIDTH["hw"], out_hw=WIDTH["out_hw"],
               heatmap_hw=WIDTH["heatmap_hw"], num_threads=os.cpu_count() or 8)
     provider = BenchNuScenesProvider(num_samples=n_epoch * batch, image_hw=WIDTH["hw"],
@@ -1406,22 +1627,31 @@ def det2d_phase(dev, card: str):
     torch.cuda.synchronize()
     reset_launch_counts()
     pipe.start_trace()
+    windows = {"program": [], "eager": []}
     try:
         it = iter(loader)
         first = None
         for i in range(n_epoch):
-            if i == 2:
+            w, at = divmod(i - 2, per_window)
+            if i >= 2 and at == 0:  # a window opens
                 torch.cuda.synchronize()
-                t_win = time.perf_counter()
+                pipe._eager_stage = TURNS[w] == "eager"
+                t_win, stage0 = time.perf_counter(), pipe.stats()["device_stage_s"]
             sw.start_meas("batch")
             b = next(it)
             sw.end_meas("batch")
             sw.finish_iter()
             if i == 0:
                 first = {k: v.clone() for k, v in flat_outputs(b).items()}
+            if i >= 2 and at == per_window - 1:  # it closes
+                torch.cuda.synchronize()
+                windows[TURNS[w]].append({
+                    "frames_per_s": per_window * batch * cams / (time.perf_counter() - t_win),
+                    "consumer_ms": (pipe.stats()["device_stage_s"] - stage0) / per_window * 1e3})
+        pipe._eager_stage = False
         torch.cuda.synchronize()
-        window_s = time.perf_counter() - t_win
         last = flat_outputs(b)
+        specs = spec_repeats(pipe)
         try:
             next(it)
             fail("det2d: the epoch did not end after its batches")
@@ -1474,9 +1704,14 @@ def det2d_phase(dev, card: str):
                 fail(f"det2d: {name} differs from the CPU by {err}")
         elif not torch.equal(got.cpu(), want):
             fail(f"det2d: {name} differs from the CPU")
-    fps = DET2D_BATCHES * batch * cams / window_s
+    modes = {m: {"frames_per_s": float(np.median([x["frames_per_s"] for x in ws])),
+                 "consumer_ms_per_batch": float(np.median([x["consumer_ms"] for x in ws])),
+                 "windows": ws} for m, ws in windows.items()}
+    fps = modes["program"]["frames_per_s"]
     emit({"phase": "det2d", "card": card, "frames_per_s": fps,
-          "ms_per_batch": window_s / DET2D_BATCHES * 1e3, "batches": DET2D_BATCHES,
+          "eager_frames_per_s": modes["eager"]["frames_per_s"], "turns": list(TURNS),
+          "batches_per_window": per_window, "stage": modes, "leaf_specs": specs,
+          "ms_per_batch": batch * cams / fps * 1e3, "batches": DET2D_BATCHES,
           "stopwatch_batch_ms": sw.get_mean_time("batch") * 1e3,
           "stopwatch_batches": sw.get_num_nonwarmup_iters_measured(),
           "draw_gaussians_launches": launches, "delivered": delivered,
@@ -1663,18 +1898,20 @@ def steps_2d_phase(dev, card: str):
     try:
         batch_idx, _, _, host = pipe._produce_host_batch()
         leaves = pipe._transfer(host)
-        pipe.run_device_stage(leaves, batch_idx)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            got = pipe.run_device_stage(leaves, batch_idx)
-        except RuntimeError as e:
-            fail(f"steps_2d: the device steps synchronised with the host: {e}")
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
+        # eager, then the shared program built and captured (or found, built
+        # by the first pipeline's batches)
+        for _ in range(EAGER_BATCHES_PER_SPEC + 1):
+            pipe.run_device_stage(leaves, batch_idx)
+        if not any(e[2] for e in pipe._stage_specs.values()):
+            fail("steps_2d: no shared program after the spec's eager batches")
+        eager = sync_free("steps_2d: the eager device steps",
+                          lambda: pipe._run_eager(leaves, batch_idx)[0])
+        got = sync_free("steps_2d: the program's replay",
+                        lambda: pipe.run_device_stage(leaves, batch_idx))
+        if not all(torch.equal(a, b) for a, b in zip(got, eager)):
+            fail("steps_2d: the shared program's replay differs from the eager stage")
         want = cpu.run_device_stage([torch.from_numpy(a) for a in host], batch_idx)
-        readings = decode_readings(lambda: pipe.run_device_stage(leaves, batch_idx), reps=10,
+        readings = decode_readings(lambda: pipe._run_eager(leaves, batch_idx), reps=10,
                                    sleep_cycles=STEPS_2D_SLEEP_CYCLES)
     finally:
         pipe.stop()
@@ -1714,8 +1951,8 @@ def steps_2d_phase(dev, card: str):
           "device_ms_min_max": [readings["device_ms_min"], readings["device_ms_max"]],
           "device_busy_ms_per_batch": readings["launches"]["busy_ms"],
           "enqueue_host_ms": readings["enqueue_host_ms"], "hold_ms": readings["hold_ms"],
-          "launches_per_batch": readings["launches"], "vs_cpu": errors,
-          "sync_free_device_steps": True,
+          "launches_per_batch": readings["launches"], "readings_of": "the eager stage",
+          "vs_cpu": errors, "sync_free_device_steps": True, "replay_bitwise_eager": True,
           "config": "raw frames 6 cams x 372x1024 (32 boxes + depths), batch 8: host "
                     "VisibleBboxSelector (per camera), condition eval + remover, tile pad to 32, "
                     "PaddingToUniform (DP buckets); device AffineTransformer per camera (shifts, "
@@ -1915,12 +2152,16 @@ def petr_phase(dev, card: str):
 
     def fed():
         # the example's loop, one loss read back per step (the first step
-        # builds the model and warms the libraries up: not timed)
+        # builds the model and warms the libraries up, the next ones run the
+        # spec's eager batches and build and capture the pipeline's device
+        # program: not timed)
         _, losses = run_stream_training(pipe, 1, trainer)
         ref_after_1 = float(trainer.memory_ref.abs().sum())
+        _, second = run_stream_training(pipe, EAGER_BATCHES_PER_SPEC, trainer)
         t0 = time.perf_counter()
-        _, more = run_stream_training(pipe, PETR_FRESH_STEPS - 1, trainer)
-        wall = (time.perf_counter() - t0) / (PETR_FRESH_STEPS - 1)
+        timed_steps = PETR_FRESH_STEPS - 1 - EAGER_BATCHES_PER_SPEC
+        _, more = run_stream_training(pipe, timed_steps, trainer)
+        wall = (time.perf_counter() - t0) / timed_steps
         # the same, timed per step on the card
         events, timed, host = [], [], time.perf_counter()
         for _ in range(PETR_TIMED_STEPS):
@@ -1932,7 +2173,7 @@ def petr_phase(dev, card: str):
             events.append((e0, e1))
             timed.append(float(metrics["loss"]))
         host = (time.perf_counter() - host) / PETR_TIMED_STEPS
-        return losses + more + timed, ref_after_1, wall, events, host
+        return losses + second + more + timed, ref_after_1, wall, events, host
 
     torch.cuda.reset_peak_memory_stats()
     (losses, ref_after_1, wall, events, fed_host_s), launches = count_launches(fed)
@@ -2300,7 +2541,7 @@ INT4_NOTE = "reported, not held to QUANT_TOL: scripts/torch_quantize_drift.py"
 # holds the stream while the host enqueues either (36-130 ms on an H100 host:
 # with the stream held no pinned block of the draws is free for reuse)
 EXPORT_SLEEP_CYCLES = 600_000_000
-EXPORT_TIMED = 10
+EXPORT_TIMED = 6
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 SERVING_ARTIFACT = os.path.join(BUILD_DIR, "serving_float.accvserve")
 PREPROCESS_ARTIFACT = os.path.join(BUILD_DIR, "preprocess.accvserve")
@@ -2571,7 +2812,7 @@ def export_phase(dev, card: str) -> int:
 
         artifact = decode_readings(lambda: serve(leaves, key), EXPORT_TIMED,
                                    EXPORT_SLEEP_CYCLES)
-        eager = decode_readings(lambda: pipe.run_device_stage(leaves, idx), EXPORT_TIMED,
+        eager = decode_readings(lambda: pipe._run_eager(leaves, idx), EXPORT_TIMED,
                                 EXPORT_SLEEP_CYCLES)
 
         # the chained path on the two files alone against the in-process one
@@ -2922,8 +3163,11 @@ def bev_phase(dev, card: str):
     try:
         idx, _, _, host = pipe._produce_host_batch()
         leaves = pipe._transfer(host)
-        pipe.run_device_stage(leaves, idx)  # warm-up
+        for _ in range(EAGER_BATCHES_PER_SPEC + 1):  # eager, then the shared program built
+            pipe.run_device_stage(leaves, idx)
         got = sync_free("bev: the device stage", lambda: pipe.run_device_stage(leaves, idx))
+        if not all(torch.equal(a, b) for a, b in zip(got, pipe._run_eager(leaves, idx)[0])):
+            fail("bev: the shared program's replay differs from the eager stage")
         want = cpu.run_device_stage([torch.from_numpy(a) for a in host], idx)
         names = list(pipe.output_names)
         rel = max(max_abs(g, w) / max(float(w.abs().max()), 1e-30) for g, w in zip(got, want))
@@ -2938,11 +3182,12 @@ def bev_phase(dev, card: str):
         replay = serve(leaves, (3, idx))
         if len(replay) != len(got) or not all(torch.equal(a, b) for a, b in zip(replay, got)):
             fail("bev: the exported stage differs from the eager stage")
-        readings = decode_readings(lambda: pipe.run_device_stage(leaves, idx), reps=20)
+        readings = decode_readings(lambda: pipe._run_eager(leaves, idx), reps=20)
     finally:
         pipe.stop()
         cpu.stop()
-    emit({"phase": "bev", "card": card,
+    emit({"phase": "bev", "card": card, "readings_of": "the eager stage",
+          "replay_bitwise_eager": True,
           "config": f"BEVBBoxesTransformer3D, batch {BEV_BATCH} x {BEV_BOXES} boxes, "
                     f"{BEV_CAMS} cameras' projection @ extrinsics, ego<->world; rotation "
                     f"{BEV_ROTATION} about z, scaling {BEV_SCALING} (StreamPETR's nuScenes "
@@ -3133,7 +3378,8 @@ def tools_phase(dev, card: str) -> int:
     reset_launch_counts()
     pipe = build_pipeline(batch_size=WIDTH["batch"], device=dev, cache_dir=CACHE_DIR)
     try:
-        pipe.run()  # outside the trace: the ring filled, the constants on the card
+        for _ in range(2):  # outside the trace: the ring filled, the main path's programs found
+            pipe.run()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(TOOLS_BATCHES):
                 ranges.range_push("tools.batch")
@@ -3151,8 +3397,8 @@ def tools_phase(dev, card: str) -> int:
     finally:
         pipe.stop()
         ranges.disable()
-    if launches != TOOLS_BATCHES + 1:
-        fail(f"tools: draw_gaussians launched {launches} times for {TOOLS_BATCHES + 1} batches")
+    if launches != TOOLS_BATCHES + 2:
+        fail(f"tools: draw_gaussians launched {launches} times for {TOOLS_BATCHES + 2} batches")
     os.makedirs(BUILD_DIR, exist_ok=True)
     trace_path = os.path.join(BUILD_DIR, "tools_trace.json")
     prof.export_chrome_trace(trace_path)
@@ -3227,7 +3473,7 @@ def tools_phase(dev, card: str) -> int:
 # two pairs of windows in turns, unsharded and mesh, then mesh and
 # unsharded, each on its own pipeline after MESH_CHECK_BATCHES batches
 # (main's 3 x 100 cut in depth; widths not cut)
-MESH_BATCHES = 10
+MESH_BATCHES = 6
 MESH_CHECK_BATCHES = 3  # delivered by the first pipeline of each kind and compared bitwise
 MESH_WRAP_CALLS = 50  # shard_batch of one delivered batch, timed (median)
 # __graft_entry__.py's pipeline-parallel stanza at one stage and one data
@@ -3425,9 +3671,10 @@ def mesh_phase(dev, card: str, main_fps: float) -> int:
           "draw_gaussians_launches": launches, "pipeline_parallel": pp,
           "pipeline_parallel_s": pp_s,
           "preemptible": {"losses": [float(x) for x in res["ref_losses"]],
-                          "resumed_bitwise": True, "restored_onto_mesh_bitwise": True},
+                          "resumed_bitwise": True, "restored_onto_mesh_bitwise": True,
+                          "resume_program_cache": res["resume_program_cache"]},
           "trainer_and_restore_s": trainer_s, "phase_s": time.perf_counter() - t_phase})
-    return launches
+    return launches, res["resume_program_cache"]
 
 
 # sharded serving: the serving phase's detector at 8 x 256x704, exported on a
@@ -3951,6 +4198,154 @@ def video_phase(dev, card: str) -> None:
           "store_round_trip": store, "phase_s": time.perf_counter() - t_phase})
 
 
+# program_cache: the unit checks of tests/test_torch_program_cache_cuda.py,
+# then bench.py's main path built twice after the cache is cleared (a miss,
+# then a hit), CACHE_BATCHES batches each, every one recomputed by the eager
+# stage on the same leaves and key
+CACHE_UNIT_CHECKS = ("test_replay_is_bitwise_the_eager_function",
+                     "test_one_graph_per_precision_context",
+                     "test_donation_frees_storage_on_the_card",
+                     "test_two_threads_share_one_executable",
+                     "test_replays_count_the_rasterizer_launches")
+CACHE_BATCHES = 10
+
+
+def cached_build(dev) -> dict:
+    """bench.py's main path on the DCT wire, CACHE_BATCHES batches: each
+    delivered batch bitwise the eager stage on its leaves and key; the
+    seconds from the build to the first batch through the program (the
+    run() calls only, each synchronised), the seconds of each program this
+    build traced and built, the capture seconds of the graphs it captured,
+    the graphs' pool bytes and the cache's counters."""
+    from accvlab_tpu_torch.bench_pipeline import build_pipeline
+    from accvlab_tpu_torch.tools import program_cache as pc
+
+    before = pc.program_cache_stats()
+    earlier = {id(g) for exe in list(pc._CACHE.values()) for g in exe.graphs.values()}
+    t_build = time.perf_counter()
+    pipe = build_pipeline(batch_size=8, device=dev, cache_dir=CACHE_DIR)
+    build_s = time.perf_counter() - t_build
+    kept, traces, eager_calls = [], [], []
+    stage, program_of, run_eager = pipe.run_device_stage, pipe._program, pipe._run_eager
+
+    def keep(leaves, batch_idx, echo_i=0):
+        kept.append([[x.clone() for x in leaves], batch_idx, echo_i, None])
+        n = len(eager_calls)
+        out = stage(leaves, batch_idx, echo_i)
+        kept[-1][3] = len(eager_calls) == n  # through the program
+        return out
+
+    def timed_program(*args):
+        t0 = time.perf_counter()
+        got = program_of(*args)
+        traces.append(time.perf_counter() - t0)
+        return got
+
+    def counted_eager(*args):
+        eager_calls.append(1)
+        return run_eager(*args)
+
+    pipe.run_device_stage, pipe._program, pipe._run_eager = keep, timed_program, counted_eager
+    run_s, first_program_s, first_batch_s, checked = build_s, None, None, 0
+    try:
+        for i in range(CACHE_BATCHES):
+            t0 = time.perf_counter()
+            out = pipe.run()
+            torch.cuda.synchronize()
+            run_s += time.perf_counter() - t0
+            leaves, batch_idx, echo_i, through = kept[-1]
+            if first_batch_s is None:
+                first_batch_s = run_s
+            if through and first_program_s is None:
+                first_program_s = run_s
+            want = run_eager(leaves, batch_idx, echo_i)[0]
+            bad = [n for n, a, b in zip(out, out.values(), want) if not torch.equal(a, b)]
+            if bad:
+                fail(f"program_cache: batch {i} through the {'program' if through else 'eager'} "
+                     f"stage differs from the eager stage in {bad[:4]}")
+            checked += through
+        programs = [e[2] for e in pipe._stage_specs.values() if e[2]]
+        graphs = [g for p in programs for g in p._exe.graphs.values()]
+        specs = spec_repeats(pipe)
+        # per leaf spec: batches through the program, batches, and whether
+        # the spec has a program at the end
+        by_spec: dict = {}
+        for leaves, _, _, through in kept:
+            spec = tuple((tuple(x.shape), x.dtype) for x in leaves)
+            got = by_spec.setdefault(repr(spec), [0, 0, bool(pipe._stage_specs[spec][2])])
+            got[0] += through
+            got[1] += 1
+    finally:
+        pipe.stop()
+    if first_program_s is None:
+        fail(f"program_cache: no spec of {CACHE_BATCHES} batches went through a program")
+    return {"cache": program_cache_delta(before), "batches": CACHE_BATCHES,
+            "through_program_bitwise_eager": checked, "programs": len(programs),
+            "leaf_specs": specs, "by_spec": list(by_spec.values()), "build_s": build_s,
+            "build_to_first_batch_s": first_batch_s,
+            "build_to_first_program_batch_s": first_program_s, "trace_s": traces,
+            "graphs": len(graphs),
+            "captured": [g.capture_s for g in graphs if id(g) not in earlier],
+            "pool_bytes": [g.pool_bytes for g in graphs]}
+
+
+def program_cache_units(dev) -> dict:
+    """The shared-program cache's unit checks on the card (CACHE_UNIT_CHECKS),
+    run early in the script: one holds the rasterizer's launch counter
+    against the kernels torch.profiler sees, and late in this script's
+    process the profiler has recorded no device rows at all, not even the
+    replays' copies. Returns each check's seconds."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_program_cache_cuda as unit
+
+    unit_s = {}
+    for name in CACHE_UNIT_CHECKS:
+        t0 = time.perf_counter()
+        getattr(unit, name)(dev)
+        unit_s[name] = time.perf_counter() - t0
+    return unit_s
+
+
+def program_cache_phase(dev, card: str, resume_cache: dict, unit_s: dict) -> None:
+    """The shared-program cache on the card: its unit checks' seconds
+    (program_cache_units, run early), the main path built twice after
+    clear_program_cache() (a miss: its spec's eager batches, a trace and a
+    capture; then a hit: the rebuilt pipeline finds the program by its
+    steps' value and runs it from its first batch, with no trace and no
+    capture), and the preemptible trainer's resumed pipeline (read in the
+    mesh phase) a hit."""
+    from accvlab_tpu_torch.tools import clear_program_cache
+
+    t_phase = time.perf_counter()
+    clear_program_cache()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    miss = cached_build(dev)
+    hit = cached_build(dev)
+    if miss["cache"]["misses"] < 1 or miss["cache"]["hits"] or miss["cache"]["declined"]:
+        fail(f"program_cache: the first build's counters {miss['cache']}")
+    if hit["cache"]["misses"] or hit["cache"]["hits"] < 1 or hit["cache"]["declined"]:
+        fail(f"program_cache: the rebuilt pipeline's counters {hit['cache']}")
+    if not miss["captured"] or hit["captured"] or not miss["trace_s"] or hit["trace_s"]:
+        fail(f"program_cache: programs traced by the first build {len(miss['trace_s'])}, by "
+             f"the rebuilt one {len(hit['trace_s'])}; graphs captured {len(miss['captured'])}, "
+             f"{len(hit['captured'])} (want some, then none)")
+    # the same batches in both builds: each spec that the first build gave a
+    # program runs it in the rebuilt one from its first batch
+    for (m_through, m_n, m_prog), (h_through, h_n, _) in zip(miss["by_spec"], hit["by_spec"]):
+        if m_prog and h_through != h_n:
+            fail(f"program_cache: the rebuilt pipeline ran {h_through} of a spec's {h_n} "
+                 "batches through the program the first build made, not all")
+    if resume_cache != {"hits": 1, "misses": 0, "declined": 0}:
+        fail(f"program_cache: the preemptible trainer's resumed stage {resume_cache}")
+    emit({"phase": "program_cache", "card": card, "unit_checks_s": unit_s,
+          "config": "bench_pipeline.build_pipeline() on the DCT wire: 6 cams x batch 8 of "
+                    "372x1024 q90 JPEG -> 256x704, heatmaps 10x64x176; built after "
+                    "clear_program_cache(), then rebuilt",
+          "miss": miss, "hit": hit, "preemptible_resume": resume_cache,
+          "phase_s": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -3980,35 +4375,51 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     replaces, results, entry_launches, n_golden = kernel_phase(dev, flush)
     emit({"phase": "goldens", "bitwise_groups": n_golden})
-    main_launches, main_fps = main_phase(dev, card)
-    main_phase(dev, card, wire="yuv")
-    main_frames_phase(dev, card)
+    cache_units = program_cache_units(dev)
+    from accvlab_tpu_torch.tools import program_cache_stats
+
+    def pipeline_phase(name, fn, *args, **kwargs):
+        """A phase that runs pipelines: its line, then the shared-program
+        cache's counters over it, which must show no declined stage."""
+        before = program_cache_stats()
+        res = fn(*args, **kwargs)
+        counters = program_cache_delta(before)
+        emit({"program_cache_of": name, **counters})
+        if counters["declined"]:
+            fail(f"{name}: {counters['declined']} device stage(s) declined the shared program")
+        return res
+
+    main_launches, main_fps = pipeline_phase("main", main_phase, dev, card)
+    pipeline_phase("main_yuv", main_phase, dev, card, wire="yuv")
+    pipeline_phase("main_frames", main_frames_phase, dev, card)
+    pipeline_phase("main_unique", main_unique_phase, dev, card)
     dct_wire_phase(dev, card)
-    wire_phase(dev, card)
-    echo_phase(dev, card)
-    det2d_launches = det2d_phase(dev, card)
-    steps_2d_phase(dev, card)
-    workers_phase(dev, card)
+    pipeline_phase("wire", wire_phase, dev, card)
+    pipeline_phase("echo", echo_phase, dev, card)
+    det2d_launches = pipeline_phase("det2d", det2d_phase, dev, card)
+    pipeline_phase("steps_2d", steps_2d_phase, dev, card)
+    pipeline_phase("workers", workers_phase, dev, card)
     affine_sizes_phase(dev, card)
     train_parity_phase(dev)
-    train_phase(dev, card)
-    input_idle_phase(dev, card)
+    pipeline_phase("train", train_phase, dev, card)
+    pipeline_phase("input_idle", input_idle_phase, dev, card)
     petr_parity_phase(dev)
-    trainer = petr_phase(dev, card)
+    trainer = pipeline_phase("petr", petr_phase, dev, card)
     matching, matching_launches = matching_phase(dev, flush, card, trainer)
     loss_launches = matched_loss_phase(dev, card)
     serving_phase(dev, card)
-    export_launches = export_phase(dev, card)
+    export_launches = pipeline_phase("export", export_phase, dev, card)
     polyline_phase(dev, card)
     lane_phase(dev, card)
-    bev_phase(dev, card)
-    elastic_phase(dev, card)
-    tools_launches = tools_phase(dev, card)
-    mesh_launches = mesh_phase(dev, card, main_fps)
-    sharded_launches = sharded_serving_phase(dev, card)
+    pipeline_phase("bev", bev_phase, dev, card)
+    pipeline_phase("elastic", elastic_phase, dev, card)
+    tools_launches = pipeline_phase("tools", tools_phase, dev, card)
+    mesh_launches, resume_cache = pipeline_phase("mesh", mesh_phase, dev, card, main_fps)
+    sharded_launches = pipeline_phase("sharded_serving", sharded_serving_phase, dev, card)
     moe_phase(dev, card)
     dryrun_phase(dev, card)
     video_phase(dev, card)
+    program_cache_phase(dev, card, resume_cache, cache_units)
 
     kernels = []
     for k in KINDS:

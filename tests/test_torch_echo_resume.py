@@ -216,17 +216,25 @@ def test_echo_stream_is_deterministic():
 ])
 def test_device_keys(monkeypatch, factor, keys):
     """At factor 1 the device randomness stays keyed (seed, batch), as
-    before echoing existed; above it each replay adds its echo index."""
+    before echoing existed; above it each replay adds its echo index. A
+    spec's first batch draws from a DeviceRandomContext, the later ones
+    through the shared program from draws made on the host from the key."""
     import accvlab_tpu_torch.pipeline.pipeline as executor
 
     seen = []
     real = executor.DeviceRandomContext
+    real_draws = executor._draws.make_draws
 
     def recording(key, device="cpu"):
         seen.append(tuple(key))
         return real(key, device=device)
 
+    def recording_draws(schedule, key):
+        seen.append(tuple(key))
+        return real_draws(schedule, key)
+
     monkeypatch.setattr(executor, "DeviceRandomContext", recording)
+    monkeypatch.setattr(executor._draws, "make_draws", recording_draws)
     _stream(_build(echo_factor=factor), 3)
     assert seen == keys
 

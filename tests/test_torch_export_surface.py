@@ -24,18 +24,12 @@ JAX_ROOT = os.path.join(REPO, "accvlab_tpu")
 FLAX = "flax module fields against torch.nn.Module"
 
 # modules of the JAX package with no counterpart yet (ROADMAP.md §1)
-NOT_PORTED = {
-    "tools.program_cache": "program_cache waits for a CUDA graph of the device stage "
-                           "(ROADMAP.md §1 item 3)",
-}
+NOT_PORTED: dict = {}
 
 # public names of a JAX module that the port's module lacks
 JAX_ONLY = {
     ("pipeline", "TPUPipeline"): "the port's executor is TorchPipeline",
     ("pipeline.pipeline", "TPUPipeline"): "the port's executor is TorchPipeline",
-    ("tools", "shared_jit"): "program_cache is not ported yet",
-    ("tools", "program_cache_stats"): "program_cache is not ported yet",
-    ("tools", "clear_program_cache"): "program_cache is not ported yet",
 }
 
 # names in the port's __all__ that the JAX module's __all__ lacks

@@ -38,6 +38,8 @@ def test_resume_is_bitwise_on_one_rank(one_thread_group, tmp_path):
     ref, got = torch.stack(res["ref_losses"]), torch.stack(res["res_losses"])
     assert ref.shape == (6,) and torch.equal(ref[3:], got)
     assert torch.isfinite(ref).all() and bool(ref[-1] < ref[0])
+    # the rebuilt pipeline's device stage: a hit of the shared-program cache
+    assert res["resume_program_cache"] == {"hits": 1, "misses": 0, "declined": 0}
 
 
 def test_resume_is_bitwise_on_two_ranks_and_restores_onto_one(one_thread_group, tmp_path):
