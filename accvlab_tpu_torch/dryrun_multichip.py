@@ -77,6 +77,11 @@ RANK_TIMEOUT_S = 900.0
 
 STANZAS = ("dp_tp", "petr", "moe", "pp", "pp_tp", "input_pipeline", "fsdp")
 
+# each stanza's name in __graft_entry__.py's lines
+TITLES = {"dp_tp": "dp x tp", "petr": "PETR 3-axis", "moe": "MoE expert-parallel",
+          "pp": "pipeline-parallel", "pp_tp": "composed dp x pp x tp",
+          "input_pipeline": "input-pipeline composed", "fsdp": "FSDP"}
+
 
 def mesh_shapes(n: int) -> dict:
     """Each stanza's mesh axes and sizes on ``n`` ranks (JAX's rules; one
@@ -98,10 +103,12 @@ def mesh_shapes(n: int) -> dict:
 
 
 def sizes(n: int) -> dict:
-    """The stanzas' batch sizes at ``n`` devices (those of 8 on one rank)."""
+    """The stanzas' batch sizes at ``n`` devices (those of 8 on one rank).
+    The FSDP step's batch is one row per rank of its ``data`` axis (all of
+    them), so it is ``n``: 8 at JAX's 8 devices."""
     n = 8 if n == 1 else n
     return {"dp_tp": max(2, n // 2), "petr": max(2, n // 4), "moe": max(2, n // 4) * 2,
-            "pp": 2 * (n // 4), "pp_tp": 2 * (n // 4), "input_pipeline": 8, "fsdp": 8}
+            "pp": 2 * (n // 4), "pp_tp": 2 * (n // 4), "input_pipeline": 8, "fsdp": n}
 
 
 # --------------------------------------------------------------------------- #
@@ -845,6 +852,15 @@ def dryrun_multichip(n_devices: int = 8, device=None) -> dict:
             return json.load(f)
 
 
+def stanza_line(name: str, res: dict) -> str:
+    """A stanza's result as ``__graft_entry__.py`` prints it, e.g.
+    ``dryrun_multichip composed dp x pp x tp: mesh 4x2x2 (data x pipe x
+    model), loss=0.1234``."""
+    mesh = res["mesh"]
+    return (f"dryrun_multichip {TITLES[name]}: mesh {'x'.join(str(v) for v in mesh.values())} "
+            f"({' x '.join(mesh)}), loss={res['loss']:.4f}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None, help="'cpu' for gloo ranks (default: the card)")
@@ -858,8 +874,7 @@ def main(argv=None) -> None:
         _rank_main(args)
         return
     for name, res in dryrun_multichip(args.n_devices, args.device).items():
-        mesh = " x ".join(f"{k} {v}" for k, v in res["mesh"].items())
-        print(f"dryrun_multichip {name}: mesh {mesh}, loss={res['loss']:.4f}")
+        print(stanza_line(name, res))
 
 
 if __name__ == "__main__":

@@ -23,6 +23,14 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              kernel (EDGE_CASES, correctness only), and one draw_gaussians
              call under torch.cuda.set_sync_debug_mode("error"), which fails
              on any copy or wait between host and card;
+   hostcopy — (right after the goldens and the program cache's unit checks,
+             where torch.profiler still records) scripts/torch_bench_hostcopy.py's
+             three rows over 528 leaves (host to card at 4 KB and 150 KB, card
+             to host at 4 KB): start_copy bitwise the per-tensor copies, then
+             HOSTCOPY_WINDOWS windows of HOSTCOPY_REPS calls of each form in
+             turns (ms per call, median and spread); the card-to-host copy of
+             the 4 KB tree counted with the profiler: one device-to-host copy
+             per chunk or lone leaf of its plan;
 4. main    — bench.py's multi-camera pipeline on the port at full width, on
              bench.py's default DCT wire (6 x 372x1024 q90 JPEG, 16 unique
              frame sets; the host entropy-decodes with libjpeg and packs the
@@ -248,7 +256,17 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              non-zero, ms per step and camera-frames/s, no hand kernel
              launched) and one under the sync check; a SharedGopStore round
              trip with one spawned process;
-25. program_cache — the shared-program cache (tools/program_cache.py) on the
+25. soak_protocol, soak_serving — scripts/torch_soak_protocol.py's campaign
+             on the card for SOAK_PROTOCOL_S from master seed SOAK_SEED (resume
+             chains bitwise their oracle's stream across rebuilt pipelines,
+             with positions that one ran eagerly and the other replayed;
+             elastic chains exactly once), then scripts/torch_soak_serving.py's
+             for SOAK_SERVING_S (InferenceServer trials in its three modes):
+             trials, failures and the compared positions per oracle/chain
+             stage mode; any failed trial, or no replayed position compared,
+             fails the run (a trial that starts before the budget ends runs
+             to its end);
+26. program_cache — the shared-program cache (tools/program_cache.py) on the
              card: the unit checks of tests/test_torch_program_cache_cuda.py
              (CACHE_UNIT_CHECKS: a replay bitwise the eager function, one
              graph per precision context, donation freeing storage, two
@@ -266,7 +284,7 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              program, the trace and capture seconds and the graphs' pool
              bytes; the preemptible trainer's resumed stage (the mesh phase)
              a hit;
-26. the {"kernels": [...]} line, the nvidia-smi line, and last the result
+27. the {"kernels": [...]} line, the nvidia-smi line, and last the result
    line {"ok": true, "device": {...}}.
 
 The pipeline phases (main, main_yuv, main_frames, main_unique, echo, det2d, workers, train,
@@ -2535,8 +2553,8 @@ SERVE_MAX_DELAY_MS, SERVE_DEPTH = 3.0, 2
 QUANT_TOL = {"max_abs_over_max": 0.12, "corrcoef": 0.99}
 # int4 (group 64) is held to its own in-process model and its drift from the
 # float module reported: the JAX package's int4 drifts beyond QUANT_TOL at
-# this width too (scripts/torch_quantize_drift.py, CPU, both packages)
-INT4_NOTE = "reported, not held to QUANT_TOL: scripts/torch_quantize_drift.py"
+# this width too (scripts/quantize_drift_torch_vs_jax.py, CPU, both packages)
+INT4_NOTE = "reported, not held to QUANT_TOL: scripts/quantize_drift_torch_vs_jax.py"
 # the exported and the eager device stage: about 300 ms of the card's clock
 # holds the stream while the host enqueues either (36-130 ms on an H100 host:
 # with the stream held no pinned block of the draws is free for reuse)
@@ -3935,6 +3953,85 @@ def dryrun_phase(dev, card: str) -> None:
           "phase_s": time.perf_counter() - t_phase})
 
 
+# --------------------------------------------------------------------- #
+# hostcopy and the soaks                                                #
+# --------------------------------------------------------------------- #
+
+HOSTCOPY_WINDOWS = 4
+HOSTCOPY_REPS = 5
+SOAK_SEED = 0
+SOAK_PROTOCOL_S = 45.0
+SOAK_SERVING_S = 20.0
+
+
+def hostcopy_phase(dev, card: str) -> None:
+    """scripts/torch_bench_hostcopy.py's rows, and the copies of one
+    card-to-host start_copy counted on the card."""
+    from accvlab_tpu_torch.hostcopy import start_copy
+    from accvlab_tpu_torch.hostcopy.async_copy import _is_cuda_tensor, _plan_d2h
+
+    bench = script_module("torch_bench_hostcopy")
+    t_phase = time.perf_counter()
+    rows = []
+    for direction, avg_kb in bench.ROWS:
+        try:
+            rows.append(bench.measure(direction, avg_kb, dev, HOSTCOPY_WINDOWS, HOSTCOPY_REPS))
+        except AssertionError as e:
+            fail(f"hostcopy: {e}")
+    tree = {k: torch.from_numpy(v).to(dev) for k, v in bench.make_tree(4, seed=1004).items()}
+    kinds, chunks = _plan_d2h(list(tree.values()), _is_cuda_tensor, True, 16, 32 << 20)
+    planned = len(chunks) + sum(kind == "single" for kind, _ in kinds)
+    counts = kernel_counts(lambda: start_copy(tree, device="cpu").get(), names=("Memcpy DtoH",))
+    copies = counts["named"]["Memcpy DtoH"]
+    if copies != planned:
+        fail(f"hostcopy: {copies} device-to-host copies for a plan of {planned} "
+             f"({len(chunks)} chunks)")
+    emit({"phase": "hostcopy", "card": card,
+          "config": "scripts/torch_bench_hostcopy.py: 528 leaves, float32 and int32 in turns; "
+                    f"{HOSTCOPY_WINDOWS} windows of {HOSTCOPY_REPS} calls per form in turns, "
+                    "each call ending in torch.cuda.synchronize()",
+          "rows": rows, "d2h_copies": copies, "d2h_chunks": len(chunks),
+          "d2h_planned_copies": planned, "d2h_readings": counts["readings"],
+          "phase_s": time.perf_counter() - t_phase})
+
+
+def soak_protocol_phase(dev, card: str) -> None:
+    """scripts/torch_soak_protocol.py's campaign on the card."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import torch_soak_protocol as soak  # by name: process workers unpickle its providers
+
+    t_phase = time.perf_counter()
+    lines = []
+    res = soak.campaign(SOAK_PROTOCOL_S, SOAK_SEED, dev, out=lines.append)
+    for line in lines:
+        print(line, file=sys.stderr, flush=True)
+    modes = res["modes"]
+    replayed = sum(v for k, v in modes.items() if k.endswith("/program"))
+    emit({"phase": "soak_protocol", "card": card, "seed": SOAK_SEED,
+          "budget_s": SOAK_PROTOCOL_S, "trials": res["trials"], "failures": res["failures"],
+          "failed": res["failed"], "positions_by_oracle_chain_mode": modes,
+          "replayed_positions": replayed,
+          "eager_positions": sum(modes.values()) - replayed,
+          "phase_s": time.perf_counter() - t_phase})
+    if res["failures"]:
+        fail(f"soak_protocol: {res['failures']} of {res['trials']} trials failed: "
+             f"{res['failed']}")
+    if not replayed:
+        fail("soak_protocol: no compared position went through a replayed program")
+
+
+def soak_serving_phase(dev, card: str) -> None:
+    """scripts/torch_soak_serving.py's campaign on the card."""
+    soak = script_module("torch_soak_serving")
+    t_phase = time.perf_counter()
+    res = soak.campaign(SOAK_SERVING_S, SOAK_SEED, dev)
+    emit({"phase": "soak_serving", "card": card, "seed": SOAK_SEED,
+          "budget_s": SOAK_SERVING_S, **res, "phase_s": time.perf_counter() - t_phase})
+    if res["failures"]:
+        fail(f"soak_serving: {res['failures']} of {res['trials']} trials failed "
+             f"(seeds {res['failed_seeds']})")
+
+
 # video: the trainer's device half at the petr phase's width, on the
 # decoder's output made on the host. The engine needs FFmpeg of its major
 # versions (libavcodec 59, libavformat 59, libavutil 57, libswscale 6, with
@@ -4376,6 +4473,7 @@ def main() -> int:
     replaces, results, entry_launches, n_golden = kernel_phase(dev, flush)
     emit({"phase": "goldens", "bitwise_groups": n_golden})
     cache_units = program_cache_units(dev)
+    hostcopy_phase(dev, card)
     from accvlab_tpu_torch.tools import program_cache_stats
 
     def pipeline_phase(name, fn, *args, **kwargs):
@@ -4419,6 +4517,8 @@ def main() -> int:
     moe_phase(dev, card)
     dryrun_phase(dev, card)
     video_phase(dev, card)
+    pipeline_phase("soak_protocol", soak_protocol_phase, dev, card)
+    soak_serving_phase(dev, card)
     program_cache_phase(dev, card, resume_cache, cache_units)
 
     kernels = []

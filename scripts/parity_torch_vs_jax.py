@@ -2,7 +2,7 @@
 the JAX package's.
 
 Run from the repository root, on the CPU:
-    JAX_PLATFORMS=cpu python3 scripts/torch_parity_report.py
+    JAX_PLATFORMS=cpu python3 scripts/parity_torch_vs_jax.py
 
 The tests (``tests/test_torch_models.py``, ``tests/test_torch_yuv.py``)
 assert tolerances; this prints what the same comparisons measure, one JSON

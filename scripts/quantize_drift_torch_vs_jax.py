@@ -9,7 +9,7 @@ difference over the float heatmap's largest magnitude, and the correlation.
 32x32 images. Runs on the CPU; both packages' quantized weights are the
 same numbers (``tests/test_torch_quantize.py``).
 
-    JAX_PLATFORMS=cpu python scripts/torch_quantize_drift.py [--width 64 --hw 256 704 --batch 2]
+    JAX_PLATFORMS=cpu python scripts/quantize_drift_torch_vs_jax.py [--width 64 --hw 256 704 --batch 2]
 
 Prints one JSON line.
 """

@@ -3,6 +3,7 @@
 runs on the CPU only when asked to."""
 
 import ast
+import importlib
 import json
 import os
 import subprocess
@@ -85,11 +86,16 @@ COPIED_CSRC = [
 
 
 def _port_files():
+    """The port's modules and its scripts (``scripts/torch_*.py``, which
+    the card machine runs without JAX)."""
     out = []
     for root, _, files in os.walk(PORT):
         if "_build" in root or "__pycache__" in root:
             continue
         out += [os.path.relpath(os.path.join(root, f), REPO) for f in files if f.endswith(".py")]
+    scripts = os.path.join(REPO, "scripts")
+    out += [os.path.join("scripts", f) for f in os.listdir(scripts)
+            if f.startswith("torch_") and f.endswith(".py")]
     return sorted(out)
 
 
@@ -223,7 +229,25 @@ def _entry_points():
         "stream_petr_video_training.run": lambda **kw: _tiny_video_run(**kw),
         "video_stream_training.main": lambda **kw: _tiny_video_stream(**kw),
         "video_vs_image_benchmark.main": lambda **kw: _tiny_video_vs_image(**kw),
+        "torch_bench_hostcopy.measure": lambda device=None: _script("torch_bench_hostcopy").measure(
+            "d2h", 4, device, 1, 1, 4),
+        "torch_soak_serving.run_trial": lambda **kw: _script("torch_soak_serving").run_trial(
+            9, **kw),
+        "torch_soak_protocol.run_resume_chain": lambda **kw: _tiny_soak_chain(**kw),
     }
+
+
+def _script(name: str):
+    """``scripts/<name>.py``, imported by name."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    return importlib.import_module(name)
+
+
+def _tiny_soak_chain(**kw):
+    soak = _script("torch_soak_protocol")
+    cfg = {"wire": "rgb", "echo": 1, "worker_mode": "thread", "depth": 1, "batch_size": 2,
+           "seed": 0}
+    return soak.run_resume_chain(cfg, soak.make_jpegs(4, 0), np.random.default_rng(0), **kw)
 
 
 def _tiny_frames_to_batch(**kw):
@@ -413,7 +437,9 @@ def _tiny_pipeline(stream=False, **kw):
                                   "polyline.interpolate", "get_as_data_node", "make_mesh",
                                   "moe_expert_parallel_training.train", "dryrun_multichip",
                                   "frames_to_batch", "stream_petr_video_training.run",
-                                  "video_stream_training.main", "video_vs_image_benchmark.main"])
+                                  "video_stream_training.main", "video_vs_image_benchmark.main",
+                                  "torch_bench_hostcopy.measure", "torch_soak_serving.run_trial",
+                                  "torch_soak_protocol.run_resume_chain"])
 def test_entry_points_default_to_cuda(name):
     fn = _entry_points()[name]
     if torch.cuda.is_available():

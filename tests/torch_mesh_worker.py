@@ -244,13 +244,15 @@ def case_preempt(rank, world, inputs, workdir):
 
 def case_dryrun(rank, world, inputs, workdir):
     """accvlab_tpu_torch.dryrun_multichip's stanzas on this world with JAX's
-    parameters and batches: each stanza's loss(es), compared gradients or
+    parameters and batches (or, with no inputs, the port's own from its
+    seeds): each stanza's loss(es), mesh sizes, compared gradients or
     parameters, delivered batches and local shapes, flat."""
     from accvlab_tpu_torch.dryrun_multichip import run_stanzas
 
     out = {}
     for name, res in run_stanzas("cpu", inputs).items():
         out[f"{name}/loss"] = np.array(res["loss"])
+        out[f"{name}/mesh"] = np.array(list(res["mesh"].values()))
         out[f"{name}/losses"] = np.array(res.get("losses", [res["loss"]]))
         for key in ("grads", "params", "batches"):
             for k, v in res.get(key, {}).items():
