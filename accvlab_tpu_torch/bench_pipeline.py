@@ -14,9 +14,11 @@ through ``ShuffledShardedInputCallable``, and one of three wires:
   bench.py falls back quietly to the YUV wire;
 * ``wire="yuv"``: the **YUV 4:2:0 pixel wire**. The host decodes
   (``ImageDecoder(decode_resize_hw=out_hw, wire_format="yuv420",
-  decoder=decoder)``: libjpeg at its 6/8 DCT scale with ``"native"``, PIL
-  with ``"pil"``) and packs the planes (``WirePlanePacker``); the card
-  unpacks them (``WirePlaneUnpacker``);
+  decoder=decoder)``: by default ``"auto"``, bench.py's decoder, which is
+  libjpeg at its 6/8 DCT scale where the library builds and PIL where it
+  does not; ``"native"`` is libjpeg or an error, ``"pil"`` always PIL) and
+  packs the planes (``WirePlanePacker``); the card unpacks them
+  (``WirePlaneUnpacker``);
 * ``wire="frames"``: raw RGB frames of the same structured noise (no
   decoder, no wire codec), the path of the earlier slices and of
   :func:`~.train_centernet_e2e.build_train_pipeline`.
@@ -140,7 +142,7 @@ def build_pipeline(batch_size: int = 8, device=None, num_threads: Optional[int] 
                    seed: int = 0, hw_out_name: Optional[str] = None, wire: str = "dct",
                    wire_pack: bool = True, echo_factor: int = 1,
                    cache_dir: Optional[str] = None, sampler: Optional[SamplerBase] = None,
-                   sampler_iterations: int = 1024, decoder: str = "pil",
+                   sampler_iterations: int = 1024, decoder: str = "auto",
                    grouping="dp16", worker_mode: str = "thread", mesh=None):
     """bench.py's pipeline on the port (``device`` defaults to the card).
 
@@ -149,7 +151,8 @@ def build_pipeline(batch_size: int = 8, device=None, num_threads: Optional[int] 
     ``"split12"``, ``"band"``, ``"diag8"`` or ``(start, end)`` pairs
     (:func:`dct_grouping`); the chosen groups are the packer's ``groups``.
     ``wire_pack=False`` ships the YUV planes without the plane codec;
-    ``decoder`` is the YUV wire's host decoder. ``num_unique`` defaults to
+    ``decoder`` is the YUV wire's host decoder (``ImageDecoder``'s
+    ``decoder=``; ``"auto"`` is JAX's rule). ``num_unique`` defaults to
     :data:`NUM_UNIQUE` of the wire. ``cache_dir`` keeps the encoded JPEGs in
     bench.py's cache format there (``multicam_jpeg.bench_jpegs``).
     ``sampler`` replaces bench.py's shuffled reads with a

@@ -7,13 +7,14 @@ Two decoders, chosen by ``decoder=`` and counted in ``decoded_by``:
   (:mod:`..native_jpeg`). It decodes at libjpeg's M/8 DCT scale (6/8 for
   1024 -> 704) and resamples to the target itself, straight into the wire
   layout; an image it cannot take raises;
-* ``"pil"`` (the default): Pillow, at its power-of-two draft scales, then a
-  bilinear resize;
-* ``"auto"``: the JAX package's rule, image by image
+* ``"pil"``: Pillow, at its power-of-two draft scales, then a bilinear
+  resize;
+* ``"auto"`` (the default): the JAX package's rule, image by image
   (``image_decoder.py:121-190``): native for a JPEG whose sizes suit it,
   when the library builds, and PIL for the rest (PNG and other formats, an
   odd yuv420 size without an even ``decode_resize_hw``, a scale hint on the
-  yuv420 wire, CMYK).
+  yuv420 wire, CMYK). Given only the JAX package's arguments, the port
+  decodes as it does.
 """
 
 from __future__ import annotations
@@ -55,8 +56,9 @@ class ImageDecoder(PipelineStepBase):
     decode) are taken in the JAX package's positions and ignored, as it
     ignores them: decoding runs on the host.
 
-    ``decoder``: ``"pil"``, ``"native"`` or ``"auto"`` (module docstring).
-    ``"native"`` raises at construction when the library does not build.
+    ``decoder``: ``"auto"`` (the JAX package's rule), ``"native"`` or
+    ``"pil"`` (module docstring). ``"native"`` raises at construction when
+    the library does not build.
     ``decoded_by`` counts the images each decoder took.
     """
 
@@ -71,7 +73,7 @@ class ImageDecoder(PipelineStepBase):
         decode_scale_hint_hw=None,
         decode_resize_hw=None,
         wire_format: str = "rgb",
-        decoder: str = "pil",
+        decoder: str = "auto",
     ):
         super().__init__()
         if decoder not in ("auto", "native", "pil"):

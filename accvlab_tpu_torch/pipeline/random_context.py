@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import _draws
+from .._device import resolve_device
 
 
 class RandomContext(ABC):
@@ -80,13 +81,16 @@ class DeviceRandomContext(RandomContext):
     ``(seed, batch_idx)``, folded through numpy's ``SeedSequence``,
     :func:`accvlab_tpu_torch._draws.generator`); draws are made on the CPU in
     the order the steps request them and returned as tensors on ``device``.
-    :attr:`schedule` records each draw's kind, shape and static bounds, in
-    order (what :class:`ReplayRandomContext` replays).
+    ``device`` defaults to the card, as the JAX package's context draws onto
+    its default device, and raises ``RuntimeError`` without one; pass
+    ``device="cpu"`` for CPU tensors. :attr:`schedule` records each draw's
+    kind, shape and static bounds, in order (what
+    :class:`ReplayRandomContext` replays).
     """
 
-    def __init__(self, key, device="cpu"):
+    def __init__(self, key, device=None):
         self._gen = _draws.generator(key)
-        self._device = torch.device(device)
+        self._device = resolve_device(device)
         self.schedule: List[dict] = []
 
     def _out(self, x):

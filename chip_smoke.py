@@ -790,17 +790,21 @@ def turn_windows(pipe, batches: int):
     branch, every batch). Returns per mode each window's seconds and the
     consumer's ms per batch (``device_stage_s / consumed``) with its host
     ms per batch in the executor's methods (``split_ms``: ``_transfer``;
-    ``run_device_stage``, and inside it ``_draws_on_device`` and
-    ``_run_eager``, which runs only for a spec's first batches in the
-    program's windows), and the last output."""
-    names = ("_transfer", "run_device_stage", "_draws_on_device", "_run_eager")
+    ``run_device_stage``, and inside it ``_draws_on_device``, ``_run_eager``,
+    which runs only for a spec's first batches in the program's windows,
+    and ``_program``, a spec's trace), the number of programs built in each
+    window (``builds``: a window with a build also holds its first replay's
+    capture) and the last output."""
+    names = ("_transfer", "run_device_stage", "_draws_on_device", "_run_eager", "_program")
     spent = dict.fromkeys(names, 0.0)
+    calls = dict.fromkeys(names, 0)
 
     def timed(name):
         fn = getattr(pipe, name)
 
         def call(*args, **kwargs):
             t0 = time.perf_counter()
+            calls[name] += 1
             try:
                 return fn(*args, **kwargs)
             finally:
@@ -813,7 +817,7 @@ def turn_windows(pipe, batches: int):
     try:
         for mode in TURNS:
             pipe._eager_stage = mode == "eager"
-            before, start = pipe.stats(), dict(spent)
+            before, start, built = pipe.stats(), dict(spent), calls["_program"]
             t0 = time.perf_counter()
             for _ in range(batches):
                 out = pipe.run()
@@ -822,6 +826,7 @@ def turn_windows(pipe, batches: int):
             after = pipe.stats()
             consumer_s = after["device_stage_s"] - before["device_stage_s"]
             res[mode].append({"s": sec, "consumer_ms": consumer_s / batches * 1e3,
+                              "builds": calls["_program"] - built,
                               "split_ms": {k: (spent[k] - start[k]) / batches * 1e3
                                            for k in names}})
     finally:
@@ -851,13 +856,15 @@ def aten_ops(fn) -> int:
 
 def stage_modes(pipe, wire: str, windows: dict, batch: int, cams: int) -> dict:
     """Per mode (program, eager): frames/s and ms per batch of each window
-    (their medians), the consumer's ms per batch, the ATen operators the
-    consumer dispatches per batch, the device launches per batch
-    (kernel_counts) and the device busy share (busy ms over the windows'
-    ms per batch). In both modes the rasterizer's kernels that the profiler
-    saw in the counted batch must equal its launch counter's growth in that
-    batch (a replay calls no wrapper: program_cache adds the capture's
-    counts), and the counter must grow by one in every batch."""
+    and their medians over the windows that built no program (a window
+    that held a spec's trace and capture stands apart under
+    ``program_with_build``), the consumer's ms per batch, the ATen
+    operators the consumer dispatches per batch, the device launches per
+    batch (kernel_counts) and the device busy share (busy ms over the
+    windows' ms per batch). In both modes the rasterizer's kernels that the
+    profiler saw in the counted batch must equal its launch counter's growth
+    in that batch (a replay calls no wrapper: program_cache adds the
+    capture's counts), and the counter must grow by one in every batch."""
     from accvlab_tpu_torch.heatmap import LAUNCHES
 
     out = {}
@@ -879,17 +886,27 @@ def stage_modes(pipe, wire: str, windows: dict, batch: int, cams: int) -> dict:
         if set(grew) != {1} or seen != 1:
             fail(f"{wire} ({mode}): the profiler saw {seen} {RASTERIZER_KERNEL} in a batch; "
                  f"the launch counter grew by {sorted(set(grew))} per batch")
-        ws = windows[mode]
-        ms = [w["s"] / TURN_BATCHES[wire] * 1e3 for w in ws]
+        ws, per_window = windows[mode], TURN_BATCHES[wire]
+        clean = [w for w in ws if not w["builds"]]
+        ms = [w["s"] / per_window * 1e3 for w in clean]
+        median_ms = float(np.median(ms)) if ms else None
         out[mode] = {
-            "frames_per_s": float(np.median([batch * cams / (m / 1e3) for m in ms])),
-            "frames_per_s_windows": [batch * cams / (m / 1e3) for m in ms],
-            "ms_per_batch": float(np.median(ms)),
-            "consumer_ms_per_batch": float(np.median([w["consumer_ms"] for w in ws])),
+            "frames_per_s": batch * cams / (median_ms / 1e3) if ms else None,
+            "frames_per_s_windows": [batch * cams * per_window / w["s"] for w in ws],
+            "builds_windows": [w["builds"] for w in ws],
+            "ms_per_batch": median_ms,
+            "consumer_ms_per_batch": (float(np.median([w["consumer_ms"] for w in clean]))
+                                      if clean else None),
             "consumer_ms_windows": [w["consumer_ms"] for w in ws],
             "consumer_split_ms_windows": [w["split_ms"] for w in ws],
             "aten_ops_per_batch": ops, "launches_per_batch": counts,
-            "device_busy_share": counts["busy_ms"] / float(np.median(ms))}
+            "device_busy_share": counts["busy_ms"] / median_ms if ms else None}
+        if mode == "program":
+            out["program_with_build"] = [
+                {"frames_per_s": batch * cams * per_window / w["s"], "builds": w["builds"],
+                 "consumer_ms_per_batch": w["consumer_ms"],
+                 "trace_ms_per_batch": w["split_ms"]["_program"]}
+                for w in ws if w["builds"]]
     return out
 
 
@@ -1188,6 +1205,33 @@ def wire_planes(pipe, leaves):
             if n.endswith(".image") or n.endswith(".image_cbcr")}
 
 
+def jax_defaults_check() -> dict:
+    """The port's own parameters at their defaults give JAX's behaviour on
+    the card: bench.py's decoder step (``bench.py:220``) with JAX's
+    arguments only decodes a bench JPEG with libjpeg, and
+    ``DeviceRandomContext(key)`` draws onto the card what the CPU context
+    draws."""
+    from accvlab_tpu_torch.pipeline import DeviceRandomContext, DType, SampleDataGroup
+    from accvlab_tpu_torch.pipeline.inputs.multicam_jpeg import encode_bench_jpegs
+    from accvlab_tpu_torch.pipeline.processing_steps import ImageDecoder
+
+    step = ImageDecoder("image", decode_resize_hw=WIDTH["out_hw"], wire_format="yuv420")
+    sdg = SampleDataGroup()
+    sdg.add_data_field("image", DType.UINT8)
+    sdg["image"] = encode_bench_jpegs(1, WIDTH["hw"])[0]
+    y = step(sdg)["image"]
+    if step.decoded_by != {"native": 1, "pil": 0} or tuple(y.shape) != WIDTH["out_hw"]:
+        fail(f"defaults: ImageDecoder with JAX's arguments decoded {tuple(y.shape)} by "
+             f"{step.decoded_by}, not by libjpeg")
+    got = DeviceRandomContext((0, 1)).uniform(0.0, 1.0, (3,))
+    want = DeviceRandomContext((0, 1), device="cpu").uniform(0.0, 1.0, (3,))
+    if got.device.type != "cuda" or not torch.equal(got.cpu(), want):
+        fail(f"defaults: DeviceRandomContext((0, 1)) drew {got} onto {got.device}, not the "
+             f"card's copy of {want}")
+    return {"image_decoder_decoded_by": step.decoded_by,
+            "device_random_context_device": str(got.device)}
+
+
 def wire_phase(dev, card: str):
     from accvlab_tpu_torch.bench_pipeline import build_pipeline
     from accvlab_tpu_torch.color import ycbcr420_to_rgb
@@ -1246,7 +1290,7 @@ def wire_phase(dev, card: str):
     emit({"phase": "wire", "card": card, "decode_bitwise_vs_unpacked_and_cpu": True,
           "planes_checked": len(unpacked), "packed_vs_unpacked_outputs_bitwise": True,
           "color_max_abs_diff_vs_cpu": worst, "color_differing_share": n_diff / n_all,
-          "sync_free_unpack_convert": True})
+          "sync_free_unpack_convert": True, "jax_defaults": jax_defaults_check()})
 
 
 def echo_wire(dev, wire: str) -> dict:
@@ -1646,6 +1690,13 @@ def det2d_phase(dev, card: str):
     reset_launch_counts()
     pipe.start_trace()
     windows = {"program": [], "eager": []}
+    builds, build_program = [0], pipe._program
+
+    def counted_build(*args, **kwargs):  # a spec's trace; its capture follows in the window
+        builds[0] += 1
+        return build_program(*args, **kwargs)
+
+    pipe._program = counted_build
     try:
         it = iter(loader)
         first = None
@@ -1655,6 +1706,7 @@ def det2d_phase(dev, card: str):
                 torch.cuda.synchronize()
                 pipe._eager_stage = TURNS[w] == "eager"
                 t_win, stage0 = time.perf_counter(), pipe.stats()["device_stage_s"]
+                built0 = builds[0]
             sw.start_meas("batch")
             b = next(it)
             sw.end_meas("batch")
@@ -1665,7 +1717,8 @@ def det2d_phase(dev, card: str):
                 torch.cuda.synchronize()
                 windows[TURNS[w]].append({
                     "frames_per_s": per_window * batch * cams / (time.perf_counter() - t_win),
-                    "consumer_ms": (pipe.stats()["device_stage_s"] - stage0) / per_window * 1e3})
+                    "consumer_ms": (pipe.stats()["device_stage_s"] - stage0) / per_window * 1e3,
+                    "builds": builds[0] - built0})
         pipe._eager_stage = False
         torch.cuda.synchronize()
         last = flat_outputs(b)
@@ -1681,6 +1734,7 @@ def det2d_phase(dev, card: str):
         trace = pipe.stop_trace()
         stats = pipe.stats()
     finally:
+        del pipe._program
         pipe.stop()
     trace.save(trace_path)
     counts = trace_check(trace.to_dict(), "det2d")
@@ -1722,14 +1776,22 @@ def det2d_phase(dev, card: str):
                 fail(f"det2d: {name} differs from the CPU by {err}")
         elif not torch.equal(got.cpu(), want):
             fail(f"det2d: {name} differs from the CPU")
-    modes = {m: {"frames_per_s": float(np.median([x["frames_per_s"] for x in ws])),
-                 "consumer_ms_per_batch": float(np.median([x["consumer_ms"] for x in ws])),
-                 "windows": ws} for m, ws in windows.items()}
+    # the medians leave out a window that held a spec's trace and capture;
+    # such windows stand apart under program_with_build
+    modes = {}
+    for m, ws in windows.items():
+        clean = [x for x in ws if not x["builds"]]
+        modes[m] = {"frames_per_s": (float(np.median([x["frames_per_s"] for x in clean]))
+                                     if clean else None),
+                    "consumer_ms_per_batch": (float(np.median([x["consumer_ms"] for x in clean]))
+                                              if clean else None),
+                    "windows": ws}
+    modes["program_with_build"] = [x for x in windows["program"] if x["builds"]]
     fps = modes["program"]["frames_per_s"]
     emit({"phase": "det2d", "card": card, "frames_per_s": fps,
           "eager_frames_per_s": modes["eager"]["frames_per_s"], "turns": list(TURNS),
           "batches_per_window": per_window, "stage": modes, "leaf_specs": specs,
-          "ms_per_batch": batch * cams / fps * 1e3, "batches": DET2D_BATCHES,
+          "ms_per_batch": batch * cams / fps * 1e3 if fps else None, "batches": DET2D_BATCHES,
           "stopwatch_batch_ms": sw.get_mean_time("batch") * 1e3,
           "stopwatch_batches": sw.get_num_nonwarmup_iters_measured(),
           "draw_gaussians_launches": launches, "delivered": delivered,

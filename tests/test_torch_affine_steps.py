@@ -219,7 +219,7 @@ def test_per_sample_shift_ranges_on_a_batch():
         sdg.add_data_field("image_hw", tpipe.DType.INT32)
         sdg.add_data_field("points", tpipe.DType.FLOAT)
         sdg.set_data([hw.clone(), torch.zeros(2, 1, 2)])
-        step.set_random_context(tpipe.DeviceRandomContext((0, 5)))
+        step.set_random_context(tpipe.DeviceRandomContext((0, 5), device="cpu"))
         return step(sdg)["points"][:, 0]
 
     a, b = run(), run()

@@ -162,8 +162,8 @@ def test_verify_recipe_decode_pad_normalize_host_only_matches_jax():
     assert native_jpeg.available()
 
     def steps(s, name):
-        kw = {"decoder": "auto"} if name == "torch" else {}
-        return [s.ImageDecoder("image", **kw), s.ImageToTileSizePadder("image", 8),
+        # the port's default decoder is JAX's rule: the same steps in both
+        return [s.ImageDecoder("image"), s.ImageToTileSizePadder("image", 8),
                 s.ImageRange01Normalizer("image")]
 
     out = _run_both(steps, device_side=False, jpeg=True)

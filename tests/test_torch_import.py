@@ -187,6 +187,7 @@ def _entry_points():
     from accvlab_tpu_torch.hostcopy import start_copy
     from accvlab_tpu_torch.models import make_petr_example_batch
     from accvlab_tpu_torch.batched_loss_computation import make_data, make_head
+    from accvlab_tpu_torch.pipeline import DeviceRandomContext
     from accvlab_tpu_torch.pipeline.processing_steps import compress_jpeg_dct, decompress_jpeg_dct
     from accvlab_tpu_torch.ragged import RaggedBatch, auction_matching, batched_auction_matching
 
@@ -234,6 +235,8 @@ def _entry_points():
         "torch_soak_serving.run_trial": lambda **kw: _script("torch_soak_serving").run_trial(
             9, **kw),
         "torch_soak_protocol.run_resume_chain": lambda **kw: _tiny_soak_chain(**kw),
+        "DeviceRandomContext": lambda **kw: DeviceRandomContext((0, 1), **kw).uniform(
+            0.0, 1.0, (3,)),
     }
 
 
@@ -439,7 +442,8 @@ def _tiny_pipeline(stream=False, **kw):
                                   "frames_to_batch", "stream_petr_video_training.run",
                                   "video_stream_training.main", "video_vs_image_benchmark.main",
                                   "torch_bench_hostcopy.measure", "torch_soak_serving.run_trial",
-                                  "torch_soak_protocol.run_resume_chain"])
+                                  "torch_soak_protocol.run_resume_chain",
+                                  "DeviceRandomContext"])
 def test_entry_points_default_to_cuda(name):
     fn = _entry_points()[name]
     if torch.cuda.is_available():

@@ -241,7 +241,7 @@ def test_device_program_text_requires_device_steps():
 
 
 def test_replay_with_a_draw_too_many_or_too_few_raises():
-    ctx = DeviceRandomContext((0, 1))
+    ctx = DeviceRandomContext((0, 1), device="cpu")
     a = ctx.uniform(0.0, 1.0, (3,))
     b = ctx.randint(0, 6, (3,))
     draws, schedule = (a, b), ctx.schedule

@@ -8,7 +8,9 @@ configs.
   program among those compared (some of them run eagerly by the oracle);
 * ``run_elastic_chain`` against ``scripts/soak_protocol.py``'s on the same
   config and rng seed: the same fleets, epochs and ids at every lockstep
-  step.
+  step;
+* the host decoder of the YUV and RGB chains against ``soak_protocol.py``'s
+  on the soak's JPEGs: bitwise, both by libjpeg.
 """
 
 import importlib.util
@@ -113,3 +115,28 @@ def test_elastic_chain_steps_equal_jax(seed, monkeypatch):
     assert got == want
     assert len({size for size, *_ in want if size != "end"}) > 1  # the fleet was resharded
     assert sum(1 for entry in want if entry[0] == "end") >= 2  # both epochs ended
+
+
+@pytest.mark.parametrize("wire", ["yuv_packed", "rgb"])
+def test_chain_decoder_equals_jax(wire, jpegs):
+    """Each chain's first step, ``ImageDecoder`` with JAX's arguments, decodes
+    the soak's JPEGs as ``soak_protocol.py``'s does: by libjpeg, bitwise
+    (the YUV chain resizes 64x96 to 48x64)."""
+    import accvlab_tpu.pipeline as jpipe
+    import accvlab_tpu_torch.pipeline as tpipe
+
+    jstep, tstep = _jax_soak().wire_steps(wire)[0], tsoak.wire_steps(wire)[0]
+    for encoded in jpegs[:3]:
+        outs = []
+        for pkg, step in ((jpipe, jstep), (tpipe, tstep)):
+            sdg = pkg.SampleDataGroup()
+            sdg.add_data_field("image", pkg.DType.UINT8)
+            sdg["image"] = encoded
+            out = step(sdg)
+            outs.append([np.asarray(v) for v in out.get_data()])
+        want, got = outs
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
+    assert tstep.decoded_by == {"native": 3, "pil": 0}

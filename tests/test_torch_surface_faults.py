@@ -12,6 +12,17 @@ port's:
 4. ``operators`` has ``apply_transform_to_points`` and
    ``add_post_transform_to_projection_matrix``, on numpy and on batched
    tensors.
+
+And the two repaired defaults of the port's own parameters, each with only
+JAX's arguments passed (tests/test_torch_export_surface.py now holds every
+default):
+
+5. ``ImageDecoder``'s ``decoder`` defaults to ``"auto"``, JAX's rule: a
+   resized bench-shape JPEG was decoded by PIL, where JAX uses libjpeg (the
+   Y plane differed by up to 18 in most values), and so was the YUV wire of
+   ``bench_pipeline.build_pipeline``;
+6. ``DeviceRandomContext``'s ``device`` defaults to the card, as JAX's
+   context draws onto its default device: it returned CPU tensors.
 """
 
 import io
@@ -23,6 +34,7 @@ import torch
 import jax.numpy as jnp
 
 import accvlab_tpu.pipeline as jpipe
+import accvlab_tpu.pipeline.native_jpeg as jnative_jpeg
 import accvlab_tpu.pipeline.operators as jops
 import accvlab_tpu.pipeline.processing_steps as jsteps
 import accvlab_tpu_torch.pipeline as tpipe
@@ -34,6 +46,13 @@ from accvlab_tpu.pipeline.inputs import ShuffledShardedInputCallable as JInput
 from accvlab_tpu_torch.hostcopy import start_copy as tstart_copy
 from accvlab_tpu_torch.pipeline.inputs import DataProvider as TProvider
 from accvlab_tpu_torch.pipeline.inputs import ShuffledShardedInputCallable as TInput
+from test_torch_yuv import (
+    BATCH,
+    CAMS,
+    assert_wire_batch_close,
+    jax_wire_pipeline,
+    torch_wire_pipeline,
+)
 
 
 @pytest.fixture(autouse=True)
@@ -98,11 +117,15 @@ def _jpeg():
     return np.frombuffer(buf.getvalue(), np.uint8).copy()
 
 
-def _decode(pkg, step):
+def _decode_step(pkg, step, encoded):
     sdg = pkg.SampleDataGroup()
     sdg.add_data_field("image", pkg.DType.UINT8)
-    sdg["image"] = _jpeg()
-    return np.asarray(step(sdg)["image"])
+    sdg["image"] = encoded
+    return step(sdg)
+
+
+def _decode(pkg, step):
+    return np.asarray(_decode_step(pkg, step, _jpeg())["image"])
 
 
 def test_image_decoder_second_argument_is_use_device_mixed():
@@ -210,3 +233,67 @@ def test_add_post_transform_to_projection_matrix_equals_jax():
     for b in range(2):
         want = jops.add_post_transform_to_projection_matrix(projs[b], ms[b])
         np.testing.assert_allclose(got[b].numpy(), want, rtol=1e-6, atol=1e-5)
+
+
+# 5 ------------------------------------------------------------------------ #
+
+
+@pytest.mark.parametrize("wire_format", ["yuv420", "rgb"])
+def test_image_decoder_default_is_jax_rule_on_bench_shape(wire_format):
+    """bench.py's step (``bench.py:220``) on one of its 372x1024 q90 JPEGs,
+    with only JAX's arguments and nothing patched: the port took PIL, whose
+    draft scale and bilinear resize differ from JAX's libjpeg decode at 6/8."""
+    from accvlab_tpu_torch.pipeline.inputs.multicam_jpeg import encode_bench_jpegs
+
+    assert jnative_jpeg.available()
+    encoded = encode_bench_jpegs(1, (372, 1024))[0]
+    kw = dict(decode_resize_hw=(256, 704), wire_format=wire_format)
+    jstep, tstep = jsteps.ImageDecoder("image", **kw), tsteps.ImageDecoder("image", **kw)
+    want, got = ({n: np.asarray(v) for n, v in zip(out.field_names_flat, out.get_data())}
+                 for out in (_decode_step(jpipe, jstep, encoded),
+                             _decode_step(tpipe, tstep, encoded)))
+    assert list(got) == list(want)
+    for name in want:
+        assert got[name].dtype == want[name].dtype and got[name].shape == want[name].shape
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    assert got["image"].shape[:2] == (256, 704)
+    assert tstep.decoded_by == {"native": 1, "pil": 0}
+
+
+def test_bench_yuv_wire_default_decoder_matches_jax_recipe():
+    """``build_pipeline(wire="yuv", device="cpu")`` without ``decoder=``
+    against JAX's recipe with JAX's decoder as it is (libjpeg here): the
+    first batch within the slice's tolerances (the PIL path of the same
+    comparison: tests/test_torch_yuv.py)."""
+    jp, tp = jax_wire_pipeline(pack=True), torch_wire_pipeline(pack=True)
+    try:
+        want = {k: np.asarray(v) for k, v in jp.run().items()}
+        got = {k: np.asarray(v) for k, v in tp.run().items()}
+        decoded_by = tp.stats()["decoded_by"]
+    finally:
+        jp.stop()
+        tp.stop()
+    assert_wire_batch_close(got, want)
+    assert decoded_by["native"] >= BATCH * CAMS and decoded_by["pil"] == 0
+
+
+# 6 ------------------------------------------------------------------------ #
+
+
+def test_device_random_context_defaults_to_the_card(monkeypatch):
+    """``DeviceRandomContext((0, 1))``: JAX draws onto its default device;
+    the port drew onto the CPU. Now it raises without a card, and
+    ``device="cpu"`` draws from the CPU generator seeded from the key."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpipe.DeviceRandomContext((0, 1))
+    ctx = tpipe.DeviceRandomContext((0, 1), device="cpu")
+    u, n, k = ctx.uniform(0.0, 1.0, (3,)), ctx.normal(0.0, 2.0, (2,)), ctx.randint(0, 6, (4,))
+    state = np.random.SeedSequence([0, 1]).generate_state(2, np.uint32)
+    gen = torch.Generator().manual_seed((int(state[0]) << 31) ^ int(state[1]))
+    want = (torch.rand(3, generator=gen), torch.randn(2, generator=gen) * 2.0,
+            torch.randint(0, 6, (4,), generator=gen, dtype=torch.int32))
+    for got, w in zip((u, n, k), want):
+        assert got.device.type == "cpu" and got.dtype == w.dtype
+        assert torch.equal(got, w)
+    assert [e["kind"] for e in ctx.schedule] == ["uniform", "normal", "randint"]

@@ -5,10 +5,9 @@ image decoder, bench.py's JPEG dataset and the wire slice end to end.
   jitted XLA) for all three matrices and both ranges, within 1 on uint8
   with the share of differing values bounded (the port runs each multiply
   and add on its own; XLA may fuse them). The converter's checks match.
-* Decoder: the port decodes through PIL only; the JAX package prefers its
-  libjpeg decoder where that library builds, so the JAX side runs with
-  ``native_jpeg.available`` patched to False, the path it takes on a host
-  without libjpeg. Planes must be bitwise equal.
+* Decoder: on the PIL path, both packages run with ``native_jpeg.available``
+  patched to False, the path they take on a host without libjpeg; on the
+  libjpeg path nothing is patched. Planes must be bitwise equal.
 * Dataset: the port's JPEG bytes equal those of bench.py's ``build_dataset``
   for the same size, and the two share bench.py's cache file format.
 * Slice: ``build_pipeline(wire="yuv")`` against the same steps in the JAX
@@ -55,8 +54,13 @@ def _one_thread():
 
 @pytest.fixture
 def jax_pil_decoder(monkeypatch):
-    """The JAX package's ImageDecoder on its PIL path, as on a host without libjpeg."""
+    """Both packages' ImageDecoder on its PIL path, as on a host without
+    libjpeg: the port's default ``decoder="auto"`` follows JAX's rule, which
+    then takes PIL in both."""
+    from accvlab_tpu_torch.pipeline import native_jpeg
+
     monkeypatch.setattr(jnative_jpeg, "available", lambda: False)
+    monkeypatch.setattr(native_jpeg, "available", lambda: False)
 
 
 def assert_within_one(got, want, max_share=0.01, what=""):
@@ -394,17 +398,23 @@ def test_wire_slice_matches_jax_packed_and_unpacked(jax_pil_decoder):
             for name in a:
                 np.testing.assert_array_equal(a[name], b[name], err_msg=f"{pkg} {name}")
     for j, t in zip(runs[("jax", True)], runs[("torch", True)]):
-        assert set(j) == set(t)
-        for name in j:
-            g, w = t[name], j[name]
-            assert g.shape == w.shape and g.dtype == w.dtype, name
-            if name.endswith(".image"):
-                np.testing.assert_allclose(g, w, rtol=0, atol=1 / 57 + 1e-5, err_msg=name)
-                assert float(np.mean(g != w)) < 0.01, name
-            elif name.endswith("heatmap"):
-                np.testing.assert_allclose(g, w, rtol=1e-6, atol=0, err_msg=name)
-            else:
-                np.testing.assert_array_equal(g, w, err_msg=name)
+        assert_wire_batch_close(t, j)
+
+
+def assert_wire_batch_close(t, j):
+    """One batch of the port's wire slice against JAX's, at
+    test_torch_slice.py's tolerances."""
+    assert set(j) == set(t)
+    for name in j:
+        g, w = t[name], j[name]
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        if name.endswith(".image"):
+            np.testing.assert_allclose(g, w, rtol=0, atol=1 / 57 + 1e-5, err_msg=name)
+            assert float(np.mean(g != w)) < 0.01, name
+        elif name.endswith("heatmap"):
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=0, err_msg=name)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=name)
 
 
 def test_build_pipeline_wire_choices():
