@@ -32,6 +32,7 @@ from torch import nn
 
 from .._device import device_of, resolve_device
 from ..ragged import RaggedBatch, average_over_targets, batched_indexing_access
+from ..tools.trace_range import _profiled
 
 Tensor = torch.Tensor
 
@@ -286,10 +287,17 @@ def make_train_step(
 
     def train_step(params: CenterNetDetector, opt_state: torch.optim.Optimizer, batch, key=None):
         del key
-        losses = centernet_loss(params(batch["images"]), batch["targets"])
-        opt_state.zero_grad(set_to_none=True)
-        losses["loss"].backward()
-        opt_state.step()
+        # each phase is an accvlab.train_step.* range while a profiler records
+        with _profiled("accvlab.train_step.forward"):
+            outputs = params(batch["images"])
+        with _profiled("accvlab.train_step.loss"):
+            losses = centernet_loss(outputs, batch["targets"])
+        with _profiled("accvlab.train_step.optimizer"):
+            opt_state.zero_grad(set_to_none=True)
+        with _profiled("accvlab.train_step.backward"):
+            losses["loss"].backward()
+        with _profiled("accvlab.train_step.optimizer"):
+            opt_state.step()
         return params, opt_state, {k: v.detach() for k, v in losses.items()}
 
     return init_fn, train_step

@@ -35,7 +35,12 @@ package's state dict, mid-echo positions included).
 
 Host work runs on threads or, with ``worker_mode="process"``, in spawned
 worker processes (:mod:`.worker_pool`). ``start_trace``/``stop_trace``
-record the executor's phase timeline (:mod:`..tools.chrome_trace`).
+record the executor's phase timeline (:mod:`..tools.chrome_trace`). While a
+``torch.profiler`` records, the consumer's phases also show there as
+``accvlab.pipeline.*`` ranges (``consumer_wait``; ``device_dispatch`` and,
+inside it, ``transfer``, ``draws`` and ``stage``; ``program_build``), on
+the profiler's clock; the producer thread's phases do not, since the
+profiler records only the thread that started it.
 
 The device stage can also be exported (``torch.export``) as a function of
 the transferred leaves and the batch's random draws: ``device_program_text``
@@ -78,6 +83,7 @@ from ..tools.program_cache import (
     program_text,
     shared_jit,
 )
+from ..tools.trace_range import _profiled
 from .dtypes import DType
 from .inputs.base import CallableBase, IterableBase, SampleInfo
 from .processing_steps.pipeline_step_base import BatchLevelStepBase, PipelineStepBase
@@ -426,8 +432,7 @@ class TorchPipeline:
         self._stat_device_stage_s = 0.0
         self._stat_transfer_bytes = 0
         self._stat_transfers = 0
-        # bytes the latest delivery moved (0 for an echo replay)
-        self._last_dispatch_bytes = 0
+        self._stat_transfer_s = 0.0
         # phase-timeline recorder (start_trace); when None the hot paths pay
         # one attribute read per phase
         self._trace = None
@@ -586,23 +591,28 @@ class TorchPipeline:
     # Transfer + device stage                                            #
     # ------------------------------------------------------------------ #
 
-    def _transfer(self, host_batch: tuple) -> tuple:
+    def _transfer(self, host_batch: tuple, batch_idx: int = -1) -> tuple:
         """Host->device placement: one packed transfer (hostcopy engine).
 
         Every field of up to 32 MiB rides a packed chunk, merged across
         dtypes into raw-byte chunks. A failing transfer raises; there is no
-        quiet fallback.
+        quiet fallback. ``batch_idx`` names the batch in the profiler's
+        ``accvlab.pipeline.transfer`` range.
         """
         from ..hostcopy import start_copy
 
+        t0 = time.monotonic()
         self._stat_transfer_bytes = sum(a.nbytes for a in host_batch)
-        self._last_dispatch_bytes = self._stat_transfer_bytes
         self._stat_transfers += 1
-        handle = start_copy(
-            list(host_batch), device=self._device, use_background_thread=False,
-            pack_candidate_max_bytes=_PACK_FIELD_MAX_BYTES, merge_dtype_chunks=True,
-        )
-        return tuple(handle.get())
+        with _profiled("accvlab.pipeline.transfer", batch=batch_idx,
+                       bytes=self._stat_transfer_bytes):
+            handle = start_copy(
+                list(host_batch), device=self._device, use_background_thread=False,
+                pack_candidate_max_bytes=_PACK_FIELD_MAX_BYTES, merge_dtype_chunks=True,
+            )
+            out = tuple(handle.get())
+        self._stat_transfer_s += time.monotonic() - t0
+        return out
 
     def run_device_stage(self, leaves: Sequence[torch.Tensor], batch_idx: int,
                          echo_i: int = 0) -> tuple:
@@ -632,14 +642,18 @@ class TorchPipeline:
             self._stage_specs.move_to_end(specs)
         entry[0] += 1
         if entry[2] is None and entry[0] > EAGER_BATCHES_PER_SPEC and not self._eager_stage:
-            entry[2] = self._program(leaves, specs, entry[1])
+            with _profiled("accvlab.pipeline.program_build", specs=len(self._stage_specs)):
+                entry[2] = self._program(leaves, specs, entry[1])
         if self._eager_stage or not entry[2]:
-            out, entry[1] = self._run_eager(leaves, batch_idx, echo_i)
+            with _profiled("accvlab.pipeline.stage", batch=batch_idx, mode="eager"):
+                out, entry[1] = self._run_eager(leaves, batch_idx, echo_i)
             self._last_device_spec = (specs, entry[1])
             return out
         self._last_device_spec = (specs, entry[1])
-        draws = self._draws_on_device(entry[1], self._batch_key(batch_idx, echo_i))
-        with F32MatmulScope():  # the precision the steps' eager run sets
+        with _profiled("accvlab.pipeline.draws", batch=batch_idx):
+            draws = self._draws_on_device(entry[1], self._batch_key(batch_idx, echo_i))
+        with _profiled("accvlab.pipeline.stage", batch=batch_idx, mode="program"), \
+                F32MatmulScope():  # the precision the steps' eager run sets
             return tuple(entry[2](tuple(leaves), draws))
 
     def _batch_key(self, batch_idx: int, echo_i: int) -> tuple:
@@ -894,16 +908,20 @@ class TorchPipeline:
         if self._echo_item is None:
             self._ensure_producer()
             t_wait0 = time.monotonic()
-            while True:
-                try:
-                    item = self._queue.get(timeout=5.0)
-                    break
-                except queue.Empty:
-                    if self._producer is None or not self._producer.is_alive():
-                        self._exhausted = True
-                        raise RuntimeError(
-                            "pipeline producer thread died without delivering a batch or an error"
-                        )
+            # the producer hands out host batches in order: the next is the
+            # first one not consumed
+            with _profiled("accvlab.pipeline.consumer_wait", batch=self._consumed_global):
+                while True:
+                    try:
+                        item = self._queue.get(timeout=5.0)
+                        break
+                    except queue.Empty:
+                        if self._producer is None or not self._producer.is_alive():
+                            self._exhausted = True
+                            raise RuntimeError(
+                                "pipeline producer thread died without delivering a batch "
+                                "or an error"
+                            )
             if item is self._END:
                 self._exhausted = True
                 tr = self._trace
@@ -924,14 +942,16 @@ class TorchPipeline:
             self._echo_start = 0
         (batch_idx, iter_after, input_state_after, batch), echo_i = self._echo_item
         t_dev0 = time.monotonic()
+        transfer = isinstance(batch[0], np.ndarray)  # the first delivery transfers
+        nbytes = sum(a.nbytes for a in batch) if transfer else 0  # 0 for an echo replay
         try:
-            if isinstance(batch[0], np.ndarray):  # the first delivery transfers
-                batch = self._transfer(batch)
-            else:
-                self._last_dispatch_bytes = 0
-            out = self.run_device_stage(batch, batch_idx, echo_i)
-            if self._mesh is not None:
-                out = shard_batch(list(out), self._mesh)
+            with _profiled("accvlab.pipeline.device_dispatch", batch=batch_idx, echo=echo_i,
+                           bytes=nbytes):
+                if transfer:
+                    batch = self._transfer(batch, batch_idx)
+                out = self.run_device_stage(batch, batch_idx, echo_i)
+                if self._mesh is not None:
+                    out = shard_batch(list(out), self._mesh)
         except Exception:
             self._exhausted = True
             self._echo_item = None
@@ -942,7 +962,7 @@ class TorchPipeline:
         tr = self._trace
         if tr is not None:
             tr.complete("device_dispatch", "consumer", t_dev0, t_dev1 - t_dev0,
-                        batch=batch_idx, echo=echo_i, bytes=self._last_dispatch_bytes)
+                        batch=batch_idx, echo=echo_i, bytes=nbytes)
         # batch delivered: advance the consumed position (the resume point)
         if echo_i + 1 < self._echo_factor:
             # keep the transferred batch for its next replay
@@ -1132,13 +1152,17 @@ class TorchPipeline:
 
     def stats(self) -> dict:
         """Live throughput/occupancy counters (the JAX executor's keys plus
-        ``transfers``): ``produced`` (host batches built) / ``consumed``
-        (batches delivered, ``echo_factor`` per host batch), ``transfers``
+        ``transfers`` and ``transfer_s``): ``produced`` (host batches built)
+        / ``consumed`` (batches delivered, ``echo_factor`` per host batch),
+        ``transfers``
         (host-to-device transfers, one per host batch), ``producer_busy_s``,
         ``producer_blocked_s``, ``consumer_wait_s``, ``device_stage_s``
         (transfer + enqueue of the device stage: the eager steps, or the
         program's copies and replay, with its trace and capture when a spec
-        first goes through it; device work is asynchronous),
+        first goes through it; device work is asynchronous), ``transfer_s``
+        (the part of ``device_stage_s`` spent in the transfers, counted once
+        per host batch, not per echo replay: planning, packing into pinned
+        staging and issuing the copy),
         ``queue_depth``/``queue_size``, ``bytes_per_batch`` (of the last
         transfer), ``input_bound_frac`` and ``program_cache``, the
         process-global shared-program cache's ``{hits, misses, declined,
@@ -1157,6 +1181,7 @@ class TorchPipeline:
             "producer_blocked_s": self._stat_producer_blocked_s,
             "consumer_wait_s": wait,
             "device_stage_s": dev,
+            "transfer_s": self._stat_transfer_s,
             "queue_depth": self._depth,
             "queue_size": self._queue.qsize(),
             "bytes_per_batch": self._stat_transfer_bytes,

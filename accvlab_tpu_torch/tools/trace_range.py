@@ -10,10 +10,15 @@ card as :mod:`.stopwatch` does.
 
 When disabled (the default), ``range_push``/``range_pop`` are bound to
 no-ops: instrumented code pays an attribute lookup.
+
+The port's own phases (the executor's and the training step's
+``accvlab.*`` ranges) open through :func:`_profiled`, which needs no
+switch: a range exists only while a ``torch.profiler`` records.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional
 
 import torch
@@ -39,6 +44,26 @@ class _Range:
         if self._nvtx:
             torch.cuda.nvtx.range_pop()
         self._rf.__exit__(None, None, None)
+
+
+#: what :func:`_profiled` hands out while no profiler records
+_OFF = contextlib.nullcontext()
+
+
+def _profiled(name: str, **args):
+    """A ``torch.profiler`` range named ``name`` while a profiler records
+    this thread, else a shared object that does nothing (the check is one
+    call). ``args`` are ints or strings, kept in the trace when the
+    profiler records shapes (``FunctionEvent.kwinputs``).
+
+    The range is the profiler's fast record function: it dispatches no
+    operator, so ``make_fx`` would not record it, and it has no twin on the
+    device's timeline; its ``device_time_total`` holds the kernels launched
+    inside it, a CUDA graph's through its launch. Keep it outside code that
+    a trace or a graph capture runs all the same."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name, (), args)
 
 
 class TraceRangeWrapper(SingletonBase):

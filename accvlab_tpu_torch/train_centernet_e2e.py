@@ -16,6 +16,7 @@ import torch
 from .bench_pipeline import build_pipeline
 from .ragged import RaggedBatch
 from .ragged.bool_indexing import stable_active_first
+from .tools.trace_range import _profiled
 
 
 def build_train_pipeline(**kwargs):
@@ -33,31 +34,33 @@ def batch_to_train_inputs(batch: Dict[str, torch.Tensor],
     camera-major along the batch axis. The active objects are moved to the
     front of each sample (a stable sort, so each group keeps its order) to
     form the RaggedBatch prefix, and ``hw`` becomes (w, h), the size head's
-    convention. Nothing is read back to the host.
+    convention. Nothing is read back to the host. While a profiler records,
+    the adaptation is its ``accvlab.batch_to_train_inputs`` range.
     """
-    cams = [cam] if isinstance(cam, int) else list(cam)
+    with _profiled("accvlab.batch_to_train_inputs"):
+        cams = [cam] if isinstance(cam, int) else list(cam)
 
-    def field(name: str) -> torch.Tensor:
-        vals = [batch[f"cameras.[{c}].{name}"] for c in cams]
-        return vals[0] if len(vals) == 1 else torch.cat(vals, 0)
+        def field(name: str) -> torch.Tensor:
+            vals = [batch[f"cameras.[{c}].{name}"] for c in cams]
+            return vals[0] if len(vals) == 1 else torch.cat(vals, 0)
 
-    images = field("image")
-    heatmap = field("annotations.heatmap").permute(0, 2, 3, 1)  # (B, C, H, W) -> (B, H, W, C)
-    act = field("annotations.active").to(torch.bool)
-    sizes = act.sum(dim=1, dtype=torch.int32)
-    order = stable_active_first(act)
+        images = field("image")
+        heatmap = field("annotations.heatmap").permute(0, 2, 3, 1)  # (B, C, H, W) -> (B, H, W, C)
+        act = field("annotations.active").to(torch.bool)
+        sizes = act.sum(dim=1, dtype=torch.int32)
+        order = stable_active_first(act)
 
-    def mk(a: torch.Tensor) -> RaggedBatch:
-        idx = order[..., None].expand(*order.shape, a.shape[2]) if a.ndim == 3 else order
-        return RaggedBatch(torch.gather(a, 1, idx), sample_sizes=sizes)
+        def mk(a: torch.Tensor) -> RaggedBatch:
+            idx = order[..., None].expand(*order.shape, a.shape[2]) if a.ndim == 3 else order
+            return RaggedBatch(torch.gather(a, 1, idx), sample_sizes=sizes)
 
-    return {
-        "images": images,
-        "targets": {
-            "heatmap": heatmap,
-            "centers": mk(field("annotations.center").to(torch.int32)),
-            "offsets": mk(field("annotations.offset")),
-            "sizes": mk(field("annotations.hw").flip(-1)),
-            "classes": mk(field("annotations.categories").to(torch.int32)),
-        },
-    }
+        return {
+            "images": images,
+            "targets": {
+                "heatmap": heatmap,
+                "centers": mk(field("annotations.center").to(torch.int32)),
+                "offsets": mk(field("annotations.offset")),
+                "sizes": mk(field("annotations.hw").flip(-1)),
+                "classes": mk(field("annotations.categories").to(torch.int32)),
+            },
+        }
