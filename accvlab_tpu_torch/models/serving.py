@@ -17,9 +17,10 @@ file with :func:`load_inference` and calls it.
   batch size. ``torch.export`` specializes a dimension traced at size 1, so
   the example batch must hold 2 or more.
 * **Registered operators**: a program that draws heatmaps calls
-  ``accvlab_tpu_torch::draw_gaussians``; the header's ``custom_ops`` names
-  it and the loader imports the module that registers it
-  (``heatmap._ops``). Output types that are not plain containers (a
+  ``accvlab_tpu_torch::draw_gaussians``, a device stage exported on the card
+  ``accvlab_tpu_torch::image_chain``; the header's ``custom_ops`` names
+  them and the loader imports the module that registers each
+  (``heatmap._ops``, ``pipeline.operators.image_chain``). Output types that are not plain containers (a
   :class:`~accvlab_tpu_torch.ragged.RaggedBatch` of detections) are named
   under ``pytree_types`` and imported the same way.
 * **float32 matmul precision** is process state that ``torch.export`` does
@@ -83,7 +84,9 @@ _FORMAT_VERSION = 1
 PROGRAM_FORMAT = "torch.export"
 
 #: registered operator namespace::name -> the module that registers it
-CUSTOM_OP_MODULES = {"accvlab_tpu_torch::draw_gaussians": "accvlab_tpu_torch.heatmap._ops"}
+CUSTOM_OP_MODULES = {"accvlab_tpu_torch::draw_gaussians": "accvlab_tpu_torch.heatmap._ops",
+                     "accvlab_tpu_torch::image_chain":
+                         "accvlab_tpu_torch.pipeline.operators.image_chain"}
 #: pytree serialized_type_name -> the module that registers it
 PYTREE_TYPE_MODULES = {"accvlab_tpu_torch.ragged.RaggedBatch": "accvlab_tpu_torch.ragged.ragged_batch"}
 

@@ -30,6 +30,15 @@ def invert_2x3(matrix: torch.Tensor) -> torch.Tensor:
     )
 
 
+def sampling_maps(matrix: torch.Tensor, bsz: int, device, inverse_map: bool = False):
+    """The ``(bsz, 2, 3)`` float32 maps from output to source pixels that
+    :func:`warp_affine` samples with, for its ``matrix`` and ``inverse_map``."""
+    m = matrix.to(device=device, dtype=torch.float32)
+    if m.ndim == 2:
+        m = m.expand(bsz, 2, 3)
+    return m if inverse_map else invert_2x3(m)
+
+
 def warp_affine(
     images: torch.Tensor,
     matrix: torch.Tensor,
@@ -54,11 +63,7 @@ def warp_affine(
     bsz, h, w, c = img.shape
     oh, ow = int(out_hw[0]), int(out_hw[1])
     dev = img.device
-    m = matrix.to(device=dev, dtype=torch.float32)
-    if m.ndim == 2:
-        m = m.expand(bsz, 2, 3)
-    if not inverse_map:
-        m = invert_2x3(m)
+    m = sampling_maps(matrix, bsz, dev, inverse_map)
 
     def e(v):  # per-sample scalar -> (B, 1, 1)
         return v[:, None, None]

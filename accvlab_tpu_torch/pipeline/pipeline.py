@@ -17,7 +17,11 @@ stages:
   card a CUDA graph, replayed), shared with every structurally identical
   pipeline of the process. A pipeline whose device steps equal, by type and
   state, those of one that built the spec's program already runs that
-  program from the spec's first batch, with no trace,
+  program from the spec's first batch, with no trace. Both run the steps
+  through :func:`.image_chain.run_device_steps`, which sends the image
+  chain ``AffineTransformer`` -> ``PhotoMetricDistorter`` ->
+  ``ImageMeanStdDevNormalizer`` through one kernel where its images are
+  uint8 on the card,
 * a **prefetch ring**: a background thread keeps ``prefetch_queue_depth``
   host batches ready, overlapping host work with the device.
 
@@ -85,6 +89,7 @@ from ..tools.program_cache import (
 )
 from ..tools.trace_range import _profiled
 from .dtypes import DType
+from .image_chain import find_image_chain, run_device_steps, takes_images
 from .inputs.base import CallableBase, IterableBase, SampleInfo
 from .processing_steps.pipeline_step_base import BatchLevelStepBase, PipelineStepBase
 from .random_context import DeviceRandomContext, HostRandomContext, ReplayRandomContext
@@ -184,8 +189,10 @@ class _StepModule(nn.Module):
         self.__dict__["step"] = step
         self._check = check
 
-    def forward(self, sdg):
-        return self.step(sdg) if self._check else self.step._process(sdg)
+    def forward(self, sdg, process):
+        """``process``, the step's ``_process`` or its stand-in
+        (:func:`.image_chain.run_device_steps`), on ``sdg``."""
+        return self.step._checked(process, sdg) if self._check else process(sdg)
 
 
 class _DeviceStage(nn.Module):
@@ -193,10 +200,11 @@ class _DeviceStage(nn.Module):
     ``schedule`` records are handed out by a :class:`ReplayRandomContext`
     (``torch.export`` cannot trace a ``torch.Generator``)."""
 
-    def __init__(self, blueprint: SampleDataGroup, steps, schedule, check: bool):
+    def __init__(self, blueprint: SampleDataGroup, steps, schedule, check: bool, chain):
         super().__init__()
         self.__dict__["blueprint"] = blueprint
         self._schedule = list(schedule)
+        self._chain = chain
         for i, step in enumerate(steps):
             self.add_module(f"{type(step).__name__}_{i}", _StepModule(step, check))
 
@@ -204,10 +212,10 @@ class _DeviceStage(nn.Module):
         sdg = self.blueprint.get_empty_like_self()
         sdg.set_data(list(leaves))
         ctx = ReplayRandomContext(draws, self._schedule)
+        modules = list(self.children())
         with F32MatmulScope():
-            for module in self.children():
-                module.step.set_random_context(ctx)
-                sdg = module(sdg)
+            sdg = run_device_steps([m.step for m in modules], sdg, ctx, self._chain,
+                                   lambda i, fn, d: modules[i](d, fn))
         ctx.finish()
         return tuple(sdg.get_data())
 
@@ -376,8 +384,15 @@ class TorchPipeline:
             if s.is_batch_level:
                 bp = s.check_input_data_format_and_set_output_data_format(bp)
         self._host_out_blueprint = bp
-        for s in self._device_steps:
+        # the image chain through its kernel, where the images at the affine
+        # step allow (.image_chain), else None
+        chain = find_image_chain(self._device_steps)
+        for i, s in enumerate(self._device_steps):
+            if chain is not None and i == chain.affine and not takes_images(bp, chain.name,
+                                                                             self._device):
+                chain = None
             bp = s.check_input_data_format_and_set_output_data_format(bp)
+        self._image_chain = chain
         self._output_blueprint = bp
         self._output_names = bp.field_names_flat
         self._host_out_types = self._host_out_blueprint.field_types_flat
@@ -430,6 +445,7 @@ class TorchPipeline:
         self._stat_producer_blocked_s = 0.0
         self._stat_consumer_wait_s = 0.0
         self._stat_device_stage_s = 0.0
+        self._stat_fused_stage_batches = 0
         self._stat_transfer_bytes = 0
         self._stat_transfers = 0
         self._stat_transfer_s = 0.0
@@ -644,15 +660,19 @@ class TorchPipeline:
         if entry[2] is None and entry[0] > EAGER_BATCHES_PER_SPEC and not self._eager_stage:
             with _profiled("accvlab.pipeline.program_build", specs=len(self._stage_specs)):
                 entry[2] = self._program(leaves, specs, entry[1])
+        fused = int(self._image_chain is not None)
+        self._stat_fused_stage_batches += fused
         if self._eager_stage or not entry[2]:
-            with _profiled("accvlab.pipeline.stage", batch=batch_idx, mode="eager"):
+            with _profiled("accvlab.pipeline.stage", batch=batch_idx, mode="eager",
+                           fused=fused):
                 out, entry[1] = self._run_eager(leaves, batch_idx, echo_i)
             self._last_device_spec = (specs, entry[1])
             return out
         self._last_device_spec = (specs, entry[1])
         with _profiled("accvlab.pipeline.draws", batch=batch_idx):
             draws = self._draws_on_device(entry[1], self._batch_key(batch_idx, echo_i))
-        with _profiled("accvlab.pipeline.stage", batch=batch_idx, mode="program"), \
+        with _profiled("accvlab.pipeline.stage", batch=batch_idx, mode="program",
+                       fused=fused), \
                 F32MatmulScope():  # the precision the steps' eager run sets
             return tuple(entry[2](tuple(leaves), draws))
 
@@ -666,10 +686,13 @@ class TorchPipeline:
         sdg = self._host_out_blueprint.get_empty_like_self()
         sdg.set_data(list(leaves))
         ctx = DeviceRandomContext(self._batch_key(batch_idx, echo_i), device=self._device)
+        steps = self._device_steps
+
+        def apply(i, fn, data):
+            return steps[i]._checked(fn, data) if self._check else fn(data)
+
         with F32MatmulScope():
-            for step in self._device_steps:
-                step.set_random_context(ctx)
-                sdg = step(sdg) if self._check else step._process(sdg)
+            sdg = run_device_steps(steps, sdg, ctx, self._image_chain, apply)
         return tuple(sdg.get_data()), tuple(ctx.schedule)
 
     def _draws_on_device(self, schedule, key) -> tuple:
@@ -704,11 +727,11 @@ class TorchPipeline:
 
     def _program(self, leaves, specs: tuple, schedule):
         """The shared program of a leaf spec and its schedule, kept under the
-        stage's name; ``False`` when its trace failed (the steps then run
-        eagerly). The transferred leaves are not donated: the program's
-        outputs are copies out of its graph's pool, and the executor drops
-        the leaves after the stage anyway."""
-        stage = _DeviceStage(self._host_out_blueprint, self._device_steps, schedule, self._check)
+        stage's name with the schedule; ``False`` when its trace failed (the
+        steps then run eagerly). The transferred leaves are not donated: the
+        program's outputs are copies out of its graph's pool, and the
+        executor drops the leaves after the stage anyway."""
+        stage = self._stage_module(schedule)
         # the trace reads only the draws' shapes and dtypes
         draws = tuple(torch.empty(e["shape"], device=self._device,
                                   dtype=torch.int32 if e["kind"] == "randint" else torch.float32)
@@ -727,6 +750,10 @@ class TorchPipeline:
         if name is not None:
             keep_program(name, program, schedule)
         return program
+
+    def _stage_module(self, schedule) -> _DeviceStage:
+        return _DeviceStage(self._host_out_blueprint, self._device_steps, schedule, self._check,
+                            self._image_chain)
 
     # ------------------------------------------------------------------ #
     # Device program: text and serving export                            #
@@ -753,7 +780,7 @@ class TorchPipeline:
         key = (specs, repr(schedule))
         if self._export_cache.get("key") == key:
             return self._export_cache["program"], schedule
-        stage = _DeviceStage(self._host_out_blueprint, self._device_steps, schedule, self._check)
+        stage = self._stage_module(schedule)
         # uint32 leaves (the DCT wire's packed exceptions) enter as their
         # int32 bits: torch.export's serializer (torch 2.11) has no uint32
         leaves = tuple(torch.zeros(shape, dtype=torch.int32 if dtype == torch.uint32 else dtype,
@@ -1164,7 +1191,9 @@ class TorchPipeline:
         per host batch, not per echo replay: planning, packing into pinned
         staging and issuing the copy),
         ``queue_depth``/``queue_size``, ``bytes_per_batch`` (of the last
-        transfer), ``input_bound_frac`` and ``program_cache``, the
+        transfer), ``input_bound_frac``, ``fused_stage_batches`` (the
+        batches whose device stage sent the image chain through its kernel,
+        :mod:`.image_chain`; eager or program) and ``program_cache``, the
         process-global shared-program cache's ``{hits, misses, declined,
         size}`` (:func:`..tools.program_cache_stats`; a rebuilt pipeline's
         device stage shows as a hit); with an ``ImageDecoder`` among the
@@ -1186,6 +1215,7 @@ class TorchPipeline:
             "queue_size": self._queue.qsize(),
             "bytes_per_batch": self._stat_transfer_bytes,
             "input_bound_frac": (wait / denom) if denom > 0.0 else 0.0,
+            "fused_stage_batches": self._stat_fused_stage_batches,
             "program_cache": program_cache_stats(),
             **self._decoder_counts(),
         }

@@ -41,7 +41,7 @@ import torch
 
 from ._common import as_name_list, batch_tensor
 from .pipeline_step_base import PipelineStepBase
-from ..operators.image_ops import warp_affine
+from ..operators.image_ops import sampling_maps, warp_affine
 from ..operators.point_ops import (
     add_post_transform_to_projection_matrix,
     apply_transform_to_points,
@@ -479,6 +479,21 @@ class AffineTransformer(PipelineStepBase):
     # -- step interface -------------------------------------------------- #
 
     def _process(self, data: SampleDataGroup) -> SampleDataGroup:
+        self._apply(data, None)
+        return data
+
+    def image_params(self, data: SampleDataGroup, image_name: Name):
+        """What :meth:`_process` does, except warping the images under
+        ``image_name``, which are left as they are: the step's part of the
+        fused image chain (:mod:`..image_chain`). Returns the ``(B, 2, 3)``
+        float32 maps from output to source pixels that their warp would
+        sample with, and the output ``(height, width)``."""
+        transform = self._apply(data, image_name)
+        return sampling_maps(transform, transform.shape[0], transform.device), self._output_hw
+
+    def _apply(self, data: SampleDataGroup, deferred: Optional[Name]) -> torch.Tensor:
+        """The step on ``data`` but for the warp of the images under
+        ``deferred`` (None: every image is warped); returns the transforms."""
         if self._extract_size_from_images:
             first = data.get_item_in_path(data.find_all_occurrences(self._image_field_names[0])[0])
             bsz, device = first.shape[0], first.device
@@ -492,6 +507,8 @@ class AffineTransformer(PipelineStepBase):
         transform = self._get_transformation(image_hw)
 
         for image_field_name in self._image_field_names:
+            if image_field_name == deferred:
+                continue
             for ip in data.find_all_occurrences(image_field_name):
                 image = data.get_item_in_path(ip)
                 data.set_item_in_path(
@@ -513,7 +530,7 @@ class AffineTransformer(PipelineStepBase):
                                         device=device)
                     out_hw[:, 1] = self._output_hw[1]
                     parent[name] = out_hw
-        return data
+        return transform
 
     def _check_and_adjust_data_format_input_to_output(
         self, data_empty: SampleDataGroup

@@ -20,6 +20,14 @@ from ..dtypes import DType, numpy_dtype_for, torch_dtype_for
 from ..sample_data_group import SampleDataGroup
 
 
+def mean_std_normalize(image: torch.Tensor, mean: np.ndarray, inv_std: np.ndarray,
+                       t_type: torch.dtype) -> torch.Tensor:
+    """``(image - mean) * inv_std`` per channel in ``t_type``."""
+    mean_t = torch.as_tensor(mean, device=image.device)
+    inv_std_t = torch.as_tensor(inv_std, device=image.device)
+    return ((image.to(t_type) - mean_t) * inv_std_t).to(t_type)
+
+
 class ImageRange01Normalizer(PipelineStepBase):
     """Cast matching UINT8 images to FLOAT and scale to [0, 1]."""
 
@@ -84,15 +92,18 @@ class ImageMeanStdDevNormalizer(PipelineStepBase):
         for ip in data.find_all_occurrences(self._image_name):
             image = data.get_item_in_path(ip)
             if isinstance(image, torch.Tensor):
-                mean = torch.as_tensor(self._mean, device=image.device)
-                inv_std = torch.as_tensor(self._inv_std, device=image.device)
-                image = ((image.to(t_type) - mean) * inv_std).to(t_type)
+                image = mean_std_normalize(image, self._mean, self._inv_std, t_type)
             else:
                 image = ((np.asarray(image).astype(np_type) - self._mean) * self._inv_std
                          ).astype(np_type)
             data.change_type_of_data_and_remove_data(ip, self._output_type)
             data.set_item_in_path(ip, image)
         return data
+
+    def image_params(self):
+        """The per-channel ``(mean, inv_std)`` as arrays of the output type:
+        the step's part of the fused image chain (:mod:`..image_chain`)."""
+        return self._mean, self._inv_std
 
     def _check_and_adjust_data_format_input_to_output(
         self, data_empty: SampleDataGroup

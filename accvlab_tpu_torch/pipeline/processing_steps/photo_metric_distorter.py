@@ -36,6 +36,9 @@ _RGB2YIQ = np.array(
 )
 _YIQ2RGB = np.linalg.inv(_RGB2YIQ).astype(np.float32)
 
+#: the scale of 8-bit values to [0, 1]
+U8_INTENSITY = np.float32(1.0 / 255.0)
+
 
 def _check_f32_matmul(device: torch.device):
     if device.type == "cuda" and (
@@ -57,9 +60,9 @@ def _saturation(image, s, luma):
     return gray[..., None] + _e(s) * (image - gray[..., None])
 
 
-def _hue_rotate(image, degrees, is_bgr):
-    if is_bgr:
-        image = image.flip(-1)
+def _hue_matrix(degrees: torch.Tensor) -> torch.Tensor:
+    """``(B, 3, 3)`` float32 hue rotations by ``degrees`` in YIQ, acting on
+    RGB column vectors."""
     rad = degrees * float(np.float32(np.pi / 180.0))
     c, s = torch.cos(rad), torch.sin(rad)
     one, zero = torch.ones_like(c), torch.zeros_like(c)
@@ -71,15 +74,77 @@ def _hue_rotate(image, degrees, is_bgr):
         ],
         -2,
     )  # (B, 3, 3)
+    _check_f32_matmul(degrees.device)
+    yiq2rgb = torch.as_tensor(_YIQ2RGB, device=degrees.device)
+    rgb2yiq = torch.as_tensor(_RGB2YIQ, device=degrees.device)
+    return torch.matmul(torch.matmul(yiq2rgb, rot), rgb2yiq)
+
+
+def _hue_rotate(image, m, is_bgr):
+    if is_bgr:
+        image = image.flip(-1)
     _check_f32_matmul(image.device)
-    yiq2rgb = torch.as_tensor(_YIQ2RGB, device=image.device)
-    rgb2yiq = torch.as_tensor(_RGB2YIQ, device=image.device)
-    m = torch.matmul(torch.matmul(yiq2rgb, rot), rgb2yiq)
     bsz, h, w, ch = image.shape
     out = torch.matmul(image.reshape(bsz, h * w, ch), m.transpose(1, 2)).reshape(image.shape)
     if is_bgr:
         out = out.flip(-1)
     return out
+
+
+def sample_values(aug: dict, is_uint8: bool) -> dict:
+    """The per-sample ``(B,)`` values of the distortion from the step's
+    decisions (``PhotoMetricDistorter._draw_decisions``), for images of
+    8-bit values (``is_uint8``) or of [0, 1] floats: the gates
+    ``brightness``, ``pre_contrast``, ``saturation``, ``hue``,
+    ``post_contrast`` and ``swap`` (bool), the brightness ``delta`` on the
+    [0, 1] scale, the contrast ``alpha``, the saturation ``s``, the hue's
+    ``(B, 3, 3)`` matrix ``hue_m`` and the channel permutation ``perm``
+    ``(B, 3)`` (int64)."""
+    intensity = U8_INTENSITY if is_uint8 else np.float32(1.0)
+    return dict(
+        brightness=aug["aug_brightness"],
+        delta=aug["delta"] * float(intensity),
+        pre_contrast=aug["aug_contrast"] & (aug["contrast_mode"] == 1),
+        alpha=aug["alpha"],
+        saturation=aug["aug_saturation"],
+        s=aug["saturation"],
+        hue=aug["aug_hue"],
+        hue_m=_hue_matrix(aug["hue"]),
+        post_contrast=aug["aug_contrast"] & (aug["contrast_mode"] == 0),
+        swap=aug["aug_swap"],
+        perm=torch.as_tensor(_CHANNEL_PERMS, device=aug["perm_index"].device)[
+            aug["perm_index"].long()],
+    )
+
+
+def luma_of(is_bgr: bool) -> list:
+    """Saturation's luma weights in the images' channel order."""
+    return [float(v) for v in (_RGB_LUMA[::-1] if is_bgr else _RGB_LUMA)]
+
+
+def distort(image: torch.Tensor, v: dict, is_uint8: bool, is_bgr: bool) -> torch.Tensor:
+    """The distortion of one batch of ``(B, H, W, 3)`` images with the
+    per-sample values ``v`` (:func:`sample_values`): uint8 images in,
+    uint8 out (truncated), else [0, 1] floats. Every operation is a
+    per-sample ``where``-select over the batch; the channel permutation is a
+    batched gather."""
+    img = image.to(torch.float32)
+    if is_uint8:
+        img = img * float(U8_INTENSITY)
+
+    def sel(cond, new, old):
+        return torch.where(_e(cond), new, old)
+
+    img = sel(v["brightness"], torch.clamp(img + _e(v["delta"]), 0.0, 1.0), img)
+    img = sel(v["pre_contrast"], torch.clamp(img * _e(v["alpha"]), 0.0, 1.0), img)
+    img = sel(v["saturation"], _saturation(img, v["s"], luma_of(is_bgr)), img)
+    img = sel(v["hue"], _hue_rotate(img, v["hue_m"], is_bgr), img)
+    img = sel(v["post_contrast"], torch.clamp(img * _e(v["alpha"]), 0.0, 1.0), img)
+    swapped = torch.gather(img, -1, v["perm"][:, None, None, :].expand(img.shape))
+    img = sel(v["swap"], swapped, img)
+    if is_uint8:
+        return torch.clamp(img * 255.0, 0.0, 255.0).to(torch.uint8)
+    return torch.clamp(img, 0.0, 1.0)
 
 
 class PhotoMetricDistorter(PipelineStepBase):
@@ -163,40 +228,22 @@ class PhotoMetricDistorter(PipelineStepBase):
         first = data.get_item_in_path(paths[0])
         aug = self._draw_decisions(first.shape[0], first.device)
         for ip in paths:
-            image = data.get_item_in_path(ip)
             t = data.get_type_of_item_in_path(ip)
             assert t in (DType.FLOAT, DType.UINT8), f"Image type {t} not supported"
             is_uint8 = t == DType.UINT8
-            img = image.to(torch.float32)
-            intensity = np.float32(1.0 / 255.0) if is_uint8 else np.float32(1.0)
-            if is_uint8:
-                img = img * float(intensity)
-
-            def sel(cond, new, old):
-                return torch.where(_e(cond), new, old)
-
-            img = sel(
-                aug["aug_brightness"],
-                torch.clamp(img + _e(aug["delta"] * float(intensity)), 0.0, 1.0),
-                img,
-            )
-            pre_contrast = aug["aug_contrast"] & (aug["contrast_mode"] == 1)
-            img = sel(pre_contrast, torch.clamp(img * _e(aug["alpha"]), 0.0, 1.0), img)
-            luma = [float(v) for v in (_RGB_LUMA[::-1] if self._is_bgr else _RGB_LUMA)]
-            img = sel(aug["aug_saturation"], _saturation(img, aug["saturation"], luma), img)
-            img = sel(aug["aug_hue"], _hue_rotate(img, aug["hue"], self._is_bgr), img)
-            post_contrast = aug["aug_contrast"] & (aug["contrast_mode"] == 0)
-            img = sel(post_contrast, torch.clamp(img * _e(aug["alpha"]), 0.0, 1.0), img)
-            perm = torch.as_tensor(_CHANNEL_PERMS, device=img.device)[aug["perm_index"].long()]
-            swapped = torch.gather(img, -1, perm[:, None, None, :].expand(img.shape))
-            img = sel(aug["aug_swap"], swapped, img)
-
-            if is_uint8:
-                img = torch.clamp(img * 255.0, 0.0, 255.0).to(torch.uint8)
-            else:
-                img = torch.clamp(img, 0.0, 1.0)
-            data.set_item_in_path(ip, img)
+            image = distort(data.get_item_in_path(ip), sample_values(aug, is_uint8), is_uint8,
+                            self._is_bgr)
+            data.set_item_in_path(ip, image)
         return data
+
+    def image_params(self, data: SampleDataGroup):
+        """The batch's decisions drawn as :meth:`_process` draws them, as the
+        per-sample values of uint8 images (:func:`sample_values`), and
+        whether the images are BGR. No pixel is touched: this is the step's
+        part of the fused image chain (:mod:`..image_chain`)."""
+        first = data.get_item_in_path(data.find_all_occurrences(self._image_name)[0])
+        aug = self._draw_decisions(first.shape[0], first.device)
+        return sample_values(aug, True), self._is_bgr
 
     def _check_and_adjust_data_format_input_to_output(
         self, data_empty: SampleDataGroup

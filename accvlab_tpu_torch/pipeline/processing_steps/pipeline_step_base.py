@@ -112,8 +112,13 @@ class PipelineStepBase(ABC):
         On the device path this runs at trace time, so like the reference's
         graph-construction-time check it costs nothing per batch.
         """
+        return self._checked(self._process, data)
+
+    def _checked(self, process, data: SampleDataGroup) -> SampleDataGroup:
+        """``process(data)``, a stand-in for ``_process``, with its output
+        format checked as :meth:`__call__` checks ``_process``'s."""
         blueprint_in = data.get_empty_like_self()
-        processed = self._process(data)
+        processed = process(data)
         reference_blueprint = self.check_input_data_format_and_set_output_data_format(blueprint_in)
         if not processed.type_matches(reference_blueprint):
             raise AssertionError(

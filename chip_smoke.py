@@ -9,8 +9,9 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              the native JPEG decoder (g++; the decoder linked with the
              system's libjpeg.so.62 or, on a host without one, Pillow's
              libjpeg-turbo, named in the line),
-             the CUDA rasterizer and the CUDA auction (nvcc, sm_90a),
-             compiled in parallel into accvlab_tpu_torch/_build/;
+             the CUDA rasterizer, the CUDA auction and the image chain's
+             kernel (nvcc, sm_90a), compiled in parallel into
+             accvlab_tpu_torch/_build/;
 3. kernels — the rasterizer through each entry point (draw_heatmap_batched,
              its classwise form, draw_heatmap, draw_gaussians), exact and
              fast exp, at the main path's shapes and the reference headline
@@ -23,6 +24,18 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              kernel (EDGE_CASES, correctness only), and one draw_gaussians
              call under torch.cuda.set_sync_debug_mode("error"), which fails
              on any copy or wait between host and card;
+   image_chain — the image chain's kernel (pipeline/csrc/image_chain.cu, the
+             operator accvlab_tpu_torch::image_chain) at the main path's
+             shapes: 16 samples of six 372x1024 uint8 camera fields to
+             256x704, the parameters drawn by bench.py's steps as the
+             pipeline draws them, against its plain version (the steps' own
+             pixel code on the same card tensors): bit for bit in every
+             sample whose hue is off, elsewhere within one 8-bit level after
+             the normalization on at most IMAGE_CHAIN_OFF_SHARE of the
+             elements; the six bare launches (``ms``), the six calls through
+             the operator (``entry_ms``, six launches counted) and the plain
+             version (``plain_ms``) timed as the rasterizer's, beside the
+             bytes bound (the frames read once, the images written once);
    hostcopy — (right after the goldens and the program cache's unit checks,
              where torch.profiler still records) scripts/torch_bench_hostcopy.py's
              three rows over 528 leaves (host to card at 4 KB and 150 KB, card
@@ -287,6 +300,11 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
 27. the {"kernels": [...]} line, the nvidia-smi line, and last the result
    line {"ok": true, "device": {...}}.
 
+main, main_yuv and main_frames also count the image chain's launches from 0 over their
+windows and fail unless every batch's device stage went through the kernel
+(``stats()["fused_stage_batches"]``), one launch per camera field; the kernels line's
+image_chain launches are theirs.
+
 The pipeline phases (main, main_yuv, main_frames, main_unique, echo, det2d, workers, train,
 input_idle, petr, export, tools, mesh) each count the rasterizer's launches from 0 and fail
 unless it ran once per delivered pipeline batch (a replayed CUDA graph counts the launches
@@ -369,6 +387,10 @@ TRAIN_TOL = {"loss": 2e-2, "heads": 3e-2, "grads": 1e-1, "grad_cosine": 0.99}
 GOLDENS = os.path.join("tests", "data", "goldens", "heatmap_goldens.npz")
 SOURCE = "accvlab_tpu_torch/heatmap/csrc/draw_heatmap.cu"
 AUCTION_SOURCE = "accvlab_tpu_torch/ragged/csrc/auction_matching.cu"
+IMAGE_CHAIN_SOURCE = "accvlab_tpu_torch/pipeline/csrc/image_chain.cu"
+# the image chain's kernel against its plain version where the hue is on:
+# the steps' hue is a cuBLAS product whose summation order is not specified
+IMAGE_CHAIN_OFF_SHARE = 1e-4
 # the widths of det2d, steps_2d and workers: bench.py's
 WIDTH = {"hw": (372, 1024), "out_hw": (256, 704), "heatmap_hw": (64, 176), "cams": 6,
          "batch": 8}
@@ -709,6 +731,101 @@ def kernel_phase(dev, flush):
     return replaces, results, entry_launches, n_golden
 
 
+def image_chain_phase(dev, flush, card: str) -> dict:
+    """The image chain's kernel at the main path's shapes against its plain
+    version, timed beside its bytes bound (module docstring)."""
+    from accvlab_tpu_torch._device import F32MatmulScope
+    from accvlab_tpu_torch.bench_pipeline import headline_steps
+    from accvlab_tpu_torch.pipeline import DType, SampleDataGroup
+    from accvlab_tpu_torch.pipeline.inputs.multicam_synthetic import (
+        sample_structure,
+        structured_noise_frames,
+    )
+    from accvlab_tpu_torch.pipeline.operators import image_chain as op
+    from accvlab_tpu_torch.pipeline.random_context import DeviceRandomContext
+
+    batch, cams, frame_hw = 16, WIDTH["cams"], WIDTH["hw"]
+    frames = structured_noise_frames(batch * cams, frame_hw, 0)
+    fields = [torch.from_numpy(np.stack(frames[c::cams])).to(dev) for c in range(cams)]
+    steps = headline_steps(WIDTH["out_hw"], WIDTH["heatmap_hw"])
+    sdg = sample_structure(SampleDataGroup, DType, cams).get_empty_like_self()
+    for c in range(cams):
+        sdg["cameras"][c]["image"] = fields[c]
+    ctx = DeviceRandomContext((0, 0), device=dev)
+    for s in steps:
+        s.set_random_context(ctx)
+    with F32MatmulScope():  # the precision the pipeline draws in
+        maps, (oh, ow) = steps[0].image_params(sdg, "image")
+        values, is_bgr = steps[1].image_params(sdg)
+        params = op.pack_params(maps, values)
+    consts = op.chain_consts(is_bgr, *steps[3].image_params())
+
+    def bare():
+        return [op.launch(f, params, oh, ow, consts) for f in fields]
+
+    def entry():
+        return [op.image_chain(f, params, oh, ow, consts) for f in fields]
+
+    def plain():
+        with F32MatmulScope():
+            return [op.image_chain_plain(f, params, (oh, ow), consts) for f in fields]
+
+    before = op.LAUNCHES["image_chain"]
+    got = entry()
+    if op.LAUNCHES["image_chain"] - before != cams:
+        fail(f"image_chain: {op.LAUNCHES['image_chain'] - before} launches for {cams} fields")
+    want = plain()
+    hue = params[:, 9] != 0
+    level = torch.tensor(consts[8:11], device=dev) * (1 + 1e-5)  # one 8-bit level: 1/std
+    off = total = 0
+    err = 0.0
+    for c, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g[~hue], w[~hue]):
+            fail(f"image_chain: camera {c}, a sample with the hue off differs from the plain "
+                 "version")
+        diff = (g - w).abs()
+        if not bool((diff <= level).all()):
+            fail(f"image_chain: camera {c} off by {float(diff.max())}, over one 8-bit level")
+        off += int((diff > 0).sum())
+        total += g.numel()
+        err = max(err, float(diff.max()))
+    if off / total > IMAGE_CHAIN_OFF_SHARE:
+        fail(f"image_chain: {off} of {total} elements differ from the plain version, over "
+             f"{IMAGE_CHAIN_OFF_SHARE}")
+    del got, want
+    nbytes = sum(f.numel() for f in fields) + batch * cams * oh * ow * 3 * 4
+    row = {"max_abs_err": err, "off_elements": off, "elements": total,
+           "hue_on_samples": int(hue.sum()),
+           "ms": device_ms(bare, N_TIMED, flush), "entry_ms": device_ms(entry, N_TIMED, flush),
+           "one_field_ms": device_ms(lambda: op.launch(fields[0], params, oh, ow, consts),
+                                     N_TIMED, flush),
+           "plain_ms": device_ms(plain, N_TIMED_PLAIN, flush),
+           "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "shape": [batch, cams, *frame_hw, oh, ow]}
+    row["roofline_pct"] = 100.0 * row["bound_ms"] / row["ms"]
+    emit({"phase": "image_chain", "card": card, **row})
+    return row
+
+
+def image_chain_windows(wire: str, pipe, windows, cams: int):
+    """``windows()`` (a main-path phase's windows on ``wire``, on ``pipe``) with the image
+    chain's launches counted from 0: fails unless every batch's device stage
+    went through the kernel, once per camera field. Returns ``windows()``'s
+    result and the launches."""
+    from accvlab_tpu_torch.pipeline.operators.image_chain import LAUNCHES
+
+    fused = pipe.stats()["fused_stage_batches"]
+    LAUNCHES["image_chain"] = 0
+    res = windows()
+    launches = LAUNCHES["image_chain"]
+    n_batches = len(TURNS) * TURN_BATCHES[wire]
+    fused = pipe.stats()["fused_stage_batches"] - fused
+    if fused != n_batches or launches != cams * n_batches:
+        fail(f"{wire} windows: {fused} of {n_batches} batches through the image chain's kernel, "
+             f"{launches} launches for {cams} cameras")
+    return res, launches
+
+
 def golden_check(goldens, dev) -> int:
     from accvlab_tpu_torch.heatmap import draw_heatmap, draw_heatmap_batched
     from accvlab_tpu_torch.ragged import RaggedBatch
@@ -999,7 +1116,8 @@ def main_phase(dev, card: str, wire: str = "dct"):
     # windows in turns on one pipeline (TURNS): frames/s per window, with the
     # medians of the program's and the eager stage's
     reset_launch_counts()
-    windows, out = turn_windows(pipe, TURN_BATCHES[wire])
+    (windows, out), chain_launches = image_chain_windows(
+        wire, pipe, lambda: turn_windows(pipe, TURN_BATCHES[wire]), num_cams)
     n_batches = len(TURNS) * TURN_BATCHES[wire]
     launches = LAUNCHES["draw_gaussians"]
     main_launches = dict(LAUNCHES)
@@ -1057,7 +1175,8 @@ def main_phase(dev, card: str, wire: str = "dct"):
         "ms_per_batch": modes["program"]["ms_per_batch"], "turns": list(TURNS),
         "batches_per_window": TURN_BATCHES[wire], "stage": modes, "batches": n_batches,
         "leaf_specs": specs,
-        "draw_gaussians_launches": launches, "bytes_per_batch": stats["bytes_per_batch"],
+        "draw_gaussians_launches": launches, "image_chain_launches": chain_launches,
+        "bytes_per_batch": stats["bytes_per_batch"],
         "unpacked_plane_bytes": UNPACKED_PLANE_BYTES, "packer_last_batch": wire_stats,
         "consumer_wait_s": stats["consumer_wait_s"], "device_stage_s": stats["device_stage_s"],
         "producer_busy_s": stats["producer_busy_s"], "produced": stats["produced"],
@@ -1065,7 +1184,7 @@ def main_phase(dev, card: str, wire: str = "dct"):
         "setup_s": setup_s, **extra,
         "config": config + ", batch 8, heatmap 10x64x176, T=32",
     })
-    return main_launches, modes["program"]["frames_per_s"]
+    return main_launches, modes["program"]["frames_per_s"], chain_launches
 
 
 def main_frames_phase(dev, card: str):
@@ -1077,8 +1196,9 @@ def main_frames_phase(dev, card: str):
         for _ in range(EAGER_BATCHES_PER_SPEC + 1):  # the spec's program built
             pipe.run()
         torch.cuda.synchronize()
-        (windows, out), launches = count_launches(
-            lambda: turn_windows(pipe, TURN_BATCHES["frames"]))
+        ((windows, out), launches), chain_launches = image_chain_windows(
+            "frames", pipe, lambda: count_launches(
+                lambda: turn_windows(pipe, TURN_BATCHES["frames"])), num_cams)
         stats = pipe.stats()
         specs = spec_repeats(pipe)
         modes = stage_modes(pipe, "frames", windows, batch, num_cams)
@@ -1094,9 +1214,10 @@ def main_frames_phase(dev, card: str):
           "ms_per_batch": modes["program"]["ms_per_batch"], "turns": list(TURNS),
           "batches_per_window": TURN_BATCHES["frames"], "stage": modes, "leaf_specs": specs,
           "batches": n_batches, "draw_gaussians_launches": launches,
-          "bytes_per_batch": stats["bytes_per_batch"],
+          "image_chain_launches": chain_launches, "bytes_per_batch": stats["bytes_per_batch"],
           "input_bound_frac": stats["input_bound_frac"],
           "config": "raw RGB frames (2 unique sets): 6 cams x 372x1024, batch 8 -> 256x704"})
+    return chain_launches
 
 
 def decode_readings(run_step, reps: int = N_TIMED, sleep_cycles: int = DECODE_SLEEP_CYCLES
@@ -4514,6 +4635,7 @@ def main() -> int:
     from accvlab_tpu_torch.heatmap import _kernel
     from accvlab_tpu_torch.hostcopy import native as hostcopy_native
     from accvlab_tpu_torch.pipeline import dct_native, native_jpeg, wire_native
+    from accvlab_tpu_torch.pipeline.operators import image_chain as image_chain_op
     from accvlab_tpu_torch.ragged import _auction_kernel
 
     smi = nvidia_smi_line()
@@ -4524,8 +4646,9 @@ def main() -> int:
           "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    builds = [_kernel.library_path, _auction_kernel.library_path, hostcopy_native.library_path,
-              wire_native.library_path, native_jpeg.library_path, dct_native.library_path]
+    builds = [_kernel.library_path, _auction_kernel.library_path, image_chain_op.library_path,
+              hostcopy_native.library_path, wire_native.library_path, native_jpeg.library_path,
+              dct_native.library_path]
     with ThreadPoolExecutor(max_workers=len(builds)) as ex:  # one compiler per source, together
         libs = list(ex.map(lambda f: f(), builds))
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "libraries": libs,
@@ -4536,6 +4659,7 @@ def main() -> int:
     emit({"phase": "goldens", "bitwise_groups": n_golden})
     cache_units = program_cache_units(dev)
     hostcopy_phase(dev, card)
+    chain = image_chain_phase(dev, flush, card)
     from accvlab_tpu_torch.tools import program_cache_stats
 
     def pipeline_phase(name, fn, *args, **kwargs):
@@ -4549,9 +4673,9 @@ def main() -> int:
             fail(f"{name}: {counters['declined']} device stage(s) declined the shared program")
         return res
 
-    main_launches, main_fps = pipeline_phase("main", main_phase, dev, card)
-    pipeline_phase("main_yuv", main_phase, dev, card, wire="yuv")
-    pipeline_phase("main_frames", main_frames_phase, dev, card)
+    main_launches, main_fps, chain_dct = pipeline_phase("main", main_phase, dev, card)
+    _, _, chain_yuv = pipeline_phase("main_yuv", main_phase, dev, card, wire="yuv")
+    chain_frames = pipeline_phase("main_frames", main_frames_phase, dev, card)
     pipeline_phase("main_unique", main_unique_phase, dev, card)
     dct_wire_phase(dev, card)
     pipeline_phase("wire", wire_phase, dev, card)
@@ -4623,6 +4747,19 @@ def main() -> int:
         "petr_shape_us_per_round": matching["petr_32x192"]["us_per_round"],
         "launches_from": f"matching phase (entry-point drive, {matching_launches}) and "
                          f"matched_loss (device-matched steps, {loss_launches})",
+    })
+    kernels.append({
+        "name": "image_chain", "route": "cuda", "source": IMAGE_CHAIN_SOURCE,
+        "replaces": "no Pallas kernel: the XLA chain warp_affine "
+                    "(accvlab_tpu/pipeline/operators/image_ops.py) -> PhotoMetricDistorter -> "
+                    "ImageMeanStdDevNormalizer (accvlab_tpu/pipeline/processing_steps/)",
+        "launches": chain_dct + chain_yuv + chain_frames,
+        **{k: chain[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "entry_ms": chain["entry_ms"], "shape": chain["shape"],
+        "roofline_pct": chain["roofline_pct"], "off_elements": chain["off_elements"],
+        "launches_from": f"the main path's windows: main ({chain_dct}), main_yuv "
+                         f"({chain_yuv}), main_frames ({chain_frames}), one launch per camera "
+                         "field of every batch",
     })
     emit({"kernels": kernels})
     print(smi, flush=True)

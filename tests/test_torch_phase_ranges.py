@@ -84,6 +84,8 @@ def test_every_phase_is_a_range_with_its_args():
     modes = [e.kwinputs["mode"] for e in named("pipeline.stage")]
     eager = executor.EAGER_BATCHES_PER_SPEC
     assert modes == ["eager"] * eager + ["program"] * (BATCHES - eager)
+    # on CPU tensors no stage sends the image chain through its kernel
+    assert [e.kwinputs["fused"] for e in named("pipeline.stage")] == [0] * BATCHES
     assert len(named("pipeline.draws")) == BATCHES - eager
     assert [e.kwinputs["specs"] for e in named("pipeline.program_build")] == [1]
     for name in ("transfer", "draws", "stage", "program_build"):
