@@ -1,43 +1,32 @@
 """The comparison that decides ``correct``.
 
-After the window, the reference (``reference/``, which imports nothing of
-the program) works out again, from the benchmark's inputs, seeds and
-initial weights:
+After the window, the family's plain reference (``reference/``, which
+imports nothing of the program) works out again, from the benchmark's
+inputs, seeds and initial weights:
 
-* the pipeline's outputs of the batches that the checked steps used and of
-  two batches of the window's own path (``window_batches``), compared
-  with what the program delivered: the share of image values off by more
-  than ``IMAGE_TOL`` (a thousandth of a normalized unit, under a tenth of
-  one 8-bit level), the largest heatmap difference, and the targets
-  (active flag, peak, offset, size) that differ;
-* the first three training steps from the same weights: each step's loss
-  (the worst relative gap), the first gradient as the optimizer holds it
-  and the parameters' change after the three steps (each the worst leaf's
-  gap of norms, against the larger of the reference leaf's norm and the
-  median leaf's, and the median leaf's gap).
+* the program's batches of the checked steps and of two steps of the
+  window's own path, compared by the family's ``pipeline_numbers``;
+* the first three training steps from the same weights, compared here:
+  each step's loss (the worst relative gap), the first gradient as the
+  optimizer holds it and the parameters' change after the three steps
+  (each the worst leaf's gap of norms, against the larger of the reference
+  leaf's norm and the median leaf's, and the median leaf's gap).
 
 Leaves whose reference gradient is under a thousandth of the median leaf's
-are left out of the two leaf numbers: Adam moves them by round-off alone.
+are left out of the two leaf numbers: the optimizer moves them by
+round-off alone.
 
-The control (``control=True``) puts the reference itself in the program's
-place, one precision step down: its products in fp8 instead of bf16 and the
-pipeline's hue product in TF32.
+The control puts the reference itself in the program's place, one
+precision step down, as the family defines it (``low=True``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
-
-from .reference import centernet as ref_centernet
-from .reference import pipeline as ref_pipeline
-from .reference.layers import Adam
-
-IMAGE_TOL = 1e-3
-TARGET_TOL = 1e-5
 
 
 def median(xs):
@@ -68,66 +57,6 @@ def worst(gaps: Dict[str, float]) -> Tuple[float, str]:
 def rel_gap(a: float, b: float) -> float:
     gap = abs(a - b) / max(abs(b), 1e-30)
     return gap if math.isfinite(gap) else math.inf
-
-
-class Inputs:
-    """The reference's view of the benchmark's inputs on ``device``."""
-
-    def __init__(self, inputs, config: dict, seed: int, device):
-        self.inputs, self.config, self.seed, self.device = inputs, config, seed, device
-        self.b = int(config["batch_size"])
-
-    def batch(self, host_batch: int, echo, tf32: bool = False) -> List[dict]:
-        idx = np.arange(host_batch * self.b, (host_batch + 1) * self.b)
-        inp = self.inputs
-        frames = np.stack([np.stack([inp.frame(int(i), c) for c in range(inp.num_cams)])
-                           for i in idx])
-        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)  # noqa: E731
-        return ref_pipeline.batch_outputs(put(frames), put(inp.boxes[idx]), put(inp.categories[idx]),
-                                          self.seed, host_batch, self.config, echo=echo, tf32=tf32)
-
-
-def pipeline_numbers(prog: List[dict], ref: List[List[dict]], cams: int) -> Dict[str, float]:
-    """``prog``: the program's output dicts; ``ref``: per batch, per camera."""
-    off = total = 0
-    heat = 0.0
-    targets = 0
-    for out, cams_ref in zip(prog, ref):
-        for c in range(cams):
-            r = cams_ref[c]
-
-            def p(key):
-                return out[f"cameras.[{c}].{key}"]
-
-            d = (p("image").float() - r["image"]).abs()
-            off += int((d > IMAGE_TOL).sum())
-            total += d.numel()
-            heat = max(heat, float((p("annotations.heatmap") - r["heatmap"]).abs().max()))
-            act_p, act_r = p("annotations.active").bool(), r["active"]
-            bad = act_p != act_r
-            bad |= act_r & (p("annotations.center").int() != r["center"]).any(-1)
-            bad |= act_r & ((p("annotations.offset") - r["offset"]).abs() > TARGET_TOL).any(-1)
-            bad |= act_r & ((p("annotations.hw") - r["hw"]).abs() > TARGET_TOL * 64).any(-1)
-            targets += int(bad.sum())
-    return {"image_off_share": off / max(total, 1), "heatmap_max_diff": heat,
-            "targets_off": float(targets)}
-
-
-def reference_steps(config: dict, weights: Dict[str, torch.Tensor], batches: List[List[dict]],
-                    low: str) -> dict:
-    """The reference's first steps from ``weights`` on the reference's
-    batches, with convolutions of ``low`` operands: losses, the first
-    gradients and the parameters after the steps."""
-    opt = config["optimizer"]
-    adam = Adam(opt["lr"], opt["b1"], opt["b2"], opt["eps"])
-    p = {k: v.detach().clone() for k, v in weights.items()}
-    losses, first = [], None
-    for cams in batches:
-        loss, grads = ref_centernet.loss_and_grads(p, ref_centernet.step_inputs(cams), config, low)
-        losses.append(float(loss))
-        first = grads if first is None else first
-        p = adam.step(p, grads)
-    return {"losses": losses, "grads": first, "params": p}
 
 
 def numbers(prog: dict, ref: dict, weights: Dict[str, torch.Tensor]) -> Dict[str, float]:

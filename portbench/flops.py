@@ -7,7 +7,8 @@ each input pixel. A training step is the forward pass, the input gradient
 of every layer but the first conv (whose input is the images) and every
 layer's weight gradient, each as many operations as the forward layer:
 ``3 * forward - first conv``. Norms, activations, pooling, the losses and
-the optimizer are left out.
+the optimizer are left out. A family counts its own step
+(``families/<family>.py``'s ``step_flops``) with these.
 """
 
 from __future__ import annotations
@@ -31,35 +32,6 @@ def conv_ops(batch: int, cin: int, cout: int, k: int, pixels: int) -> float:
     return 2.0 * batch * pixels * cin * cout * k * k
 
 
-def centernet_step(cfg: dict) -> float:
-    """One training step of CenterNet's ResNet network (``network.py``) on
-    every camera of a batch at ``out_hw``: the 7x7 stem, the basic blocks and
-    their 1x1 shortcuts, the transposed convs, and per head its 3x3 and 1x1
-    convs."""
-    n = int(cfg["batch_size"]) * int(cfg["num_cams"])
-    h, w = (-(-int(x) // 2) for x in cfg["out_hw"])
-    widths = [int(c) for c in cfg["widths"]]
-    first = conv_ops(n, 3, widths[0], 7, h * w)
-    fwd = first
-    h, w = -(-h // 2), -(-w // 2)  # the max pool
-    cin = widths[0]
-    for s, (blocks, cout) in enumerate(zip(cfg["blocks"], widths)):
-        for j in range(int(blocks)):
-            if s > 0 and j == 0:
-                h, w = -(-h // 2), -(-w // 2)
-            fwd += conv_ops(n, cin, cout, 3, h * w) + conv_ops(n, cout, cout, 3, h * w)
-            if (s > 0 and j == 0) or cin != cout:
-                fwd += conv_ops(n, cin, cout, 1, h * w)
-            cin = cout
-    for cout in cfg["deconv_filters"]:
-        fwd += conv_ops(n, cin, int(cout), int(cfg["deconv_kernel"]), h * w)
-        h, w, cin = 2 * h, 2 * w, int(cout)
-    hc = int(cfg["head_conv"])
-    for outs in (int(cfg["num_classes"]), 2, 2):
-        fwd += conv_ops(n, cin, hc, 3, h * w) + conv_ops(n, hc, outs, 1, h * w)
-    return 3.0 * fwd - first
-
-
 def raster_bound_s(cfg: dict, peak: Dict[str, float]) -> float:
     """The least time of one rasterizer launch over a batch's heatmaps
     (every camera of the batch): the maps read and written once, the targets
@@ -74,3 +46,14 @@ def raster_bound_s(cfg: dict, peak: Dict[str, float]) -> float:
     reach = 2 * 10 + 1
     ops = n * t * reach * reach * 8.0
     return max((2 * maps + targets) / peak["hbm_bytes"], ops / peak["fp32_flops"])
+
+
+def image_chain_bound_s(cfg: dict, peak: Dict[str, float]) -> float:
+    """The least time of one launch of the image chain's kernel (warp,
+    photometric distortion, normalization) over one camera field of a batch:
+    its uint8 source frames read once and its float32 images written once,
+    at the memory's rate."""
+    b = int(cfg["batch_size"])
+    h, w = cfg["frame_hw"]
+    oh, ow = cfg["out_hw"]
+    return (b * h * w * 3 + b * oh * ow * 3 * 4) / peak["hbm_bytes"]

@@ -17,12 +17,13 @@ and the readers of them give nothing.
 runs a cell as ``portbench.run`` sets it up, then stretches of
 ``breakdown_steps`` steps, each closed by a synchronize: :data:`UNTRACED`
 of them, one profiled on the host and the card (with the harness's own
-``portbench.*`` ranges), and :data:`UNTRACED` more; it prints one JSON line: the six per-layer readings of ``metrics/`` that read
-these spans and the pipeline's counters over the untraced stretches, the
-traced stretch's time per step against the untraced ones, the idle gaps
-named both ways, and the waiting calls grouped by their innermost range.
-It reads the program; the cell's benchmark runs (``portbench.run``) do not
-call it.
+``portbench.*`` ranges), and :data:`UNTRACED` more; it prints one JSON
+line: the readings of the cell's per-layer metrics that find something in
+these spans and the program's counters, taken over the untraced stretches
+(:func:`readings`), the traced stretch's time per step against the
+untraced ones, the idle gaps named both ways, and the waiting calls
+grouped by their innermost range. A traced run of ``portbench.run`` reads
+the same metrics from its own host-traced stretch and window.
 """
 
 from __future__ import annotations
@@ -41,11 +42,6 @@ PREFIX = "accvlab."
 #: the CUDA runtime calls that return only once the card has caught up
 BLOCKING = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize",
             "cudaMemcpy", "cudaFree", "cudaFreeHost", "cudaHostAlloc", "cudaMallocHost")
-#: the per-layer metrics that read :func:`spans` and the pipeline's counters
-READERS = ("dispatch_ms.frames", "transfer_host_ms.frames", "stage_device_ms.frames",
-           "loss_device_ms.centernet", "optimizer_device_ms.centernet", "host_blocked_ms")
-#: the pipeline's counters that those read, with ``consumed``
-COUNTERS = ("consumed", "device_stage_s", "transfers", "transfer_s")
 #: the untraced stretches before the profiled one, and after it
 UNTRACED = 3
 
@@ -55,13 +51,6 @@ def blocking_name(name: str) -> Optional[str]:
     it is one of :data:`BLOCKING`, else ``None``."""
     base = re.sub(r"(_v\d+)?(_pt(sz|ds))?$", "", name)
     return base if base in BLOCKING else None
-
-
-def innermost(ranges: List[tuple], t: float) -> Optional[str]:
-    """The name of the shortest of ``ranges`` (name, start s, duration s)
-    open at ``t``."""
-    open_ = [r for r in ranges if r[1] <= t < r[1] + r[2]]
-    return min(open_, key=lambda r: r[2])[0] if open_ else None
 
 
 def spans(prof, lo: float, hi: float, steps: int) -> Dict:
@@ -91,25 +80,9 @@ def spans(prof, lo: float, hi: float, steps: int) -> Dict:
             calls.append({"name": blocking_name(e.name), "start": start, "dur": dur})
     opened = [(r["name"], r["start"], r["dur"]) for r in ranges] + harness
     for c in calls:
-        c["range"] = innermost(opened, c["start"])
+        c["range"] = tracing.innermost(opened, c["start"])
     ranges.sort(key=lambda r: r["start"])
     return {"steps": steps, "ranges": ranges, "blocking": calls}
-
-
-def idle_gaps(device: List[tuple], host: List[tuple], ranges: List[dict], lo: float,
-              hi: float, top: int = 10) -> List[list]:
-    """``tracing.summarize``'s idle gaps, the same gaps of the same lengths,
-    named by the innermost range open at the gap's start among the
-    harness's spans (``host``, from ``tracing.profile_rows``) and the
-    program's ``ranges`` (:func:`spans`); ``outside_steps`` when none is."""
-    merged = tracing.union(device, lo, hi)
-    edges = [lo] + [x for ab in merged for x in ab] + [hi]
-    opened = [h for h in host if h[0] != "window"] + [
-        (r["name"], r["start"], r["dur"]) for r in ranges]
-    gaps = [[innermost(opened, a) or "outside_steps", b - a]
-            for a, b in zip(edges[0::2], edges[1::2]) if b > a]
-    gaps.sort(key=lambda g: -g[1])
-    return gaps[:top]
 
 
 def blocking_summary(blocking: List[dict]) -> List[dict]:
@@ -123,26 +96,38 @@ def blocking_summary(blocking: List[dict]) -> List[dict]:
     return sorted(out, key=lambda g: -g["total_ms"])
 
 
+def readings(cell, ctx: dict) -> Dict[str, float]:
+    """The cell's per-layer metrics that find something in ``ctx``, by
+    name. ``ctx`` has the keys of ``portbench.run``'s that the readers
+    index, over the untraced stretches, but no device stretch (``profile``,
+    ``peaks``) and no step events: their readers return ``None``, and a
+    reader that raises is at fault."""
+    values = {name: read(ctx) for name, read in cell.readers.items()}
+    return {name: v for name, v in values.items() if v is not None}
+
+
 def run_phases(cell, seed: int, device, untraced: int = UNTRACED) -> dict:
     """Set up ``cell`` as ``portbench.run`` does (inputs, weights, pipeline,
     network, its checked and warm-up steps), then run ``untraced``
     stretches, the profiled one, and ``untraced`` more: the line
     :func:`main` prints."""
     import torch
+    from accvlab_tpu_torch.tools import program_cache_stats
 
-    from . import data, program, run
-    from .reference.centernet import leaf_specs
+    from . import run
     from .reference.layers import make_leaves
-    from .spec import load_reader
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cuda = device.type == "cuda"
-    cfg, tr = cell.config, cell.traffic
-    inputs = data.make_inputs(seed, cfg, tr)
-    weights = make_leaves(leaf_specs(cfg), run.weight_generator(seed, device), device)
-    feed = program.Feed(cfg, tr, inputs, seed, device, None)
-    step = program.Step(cfg, weights, device, None)
+    cfg, tr, fam = cell.config, cell.traffic, cell.family
+    inputs = fam.make_inputs(seed, cfg, tr)
+    weights = make_leaves(fam.leaf_specs(cfg), run.weight_generator(seed, device), device)
+    feed = fam.Feed(cfg, tr, inputs, seed, device, None)
+    step = fam.Step(cfg, weights, device, None)
+
+    def counters():
+        return feed.stats(), program_cache_stats()
 
     def sync():
         if cuda:
@@ -162,17 +147,17 @@ def run_phases(cell, seed: int, device, untraced: int = UNTRACED) -> dict:
     n = int(tr["breakdown_steps"])
     try:
         steps(run.CHECKED_STEPS + int(tr["warmup_steps"]))
-        counters0 = feed.stats()
+        counters0 = counters()
         before = [steps(n) for _ in range(untraced)]
-        counters1 = feed.stats()
+        counters1 = counters()
         acts = [torch.profiler.ProfilerActivity.CPU]
         acts += [torch.profiler.ProfilerActivity.CUDA] if cuda else []
         with torch.profiler.profile(activities=acts) as prof:
             with torch.profiler.record_function("portbench.window"):
                 traced = steps(n, torch.profiler.record_function)
-        counters2 = feed.stats()
+        counters2 = counters()
         after = [steps(n) for _ in range(untraced)]
-        counters3 = feed.stats()
+        counters3 = counters()
     finally:
         feed.close()
         step.close()
@@ -180,26 +165,28 @@ def run_phases(cell, seed: int, device, untraced: int = UNTRACED) -> dict:
     device_rows, host = tracing.profile_rows(prof)
     win = [h for h in host if h[0] == "window"]
     lo, hi = (win[0][1], win[0][1] + win[0][2]) if win else (0.0, 0.0)
-    ctx = {"pipeline": {k: (counters1.get(k, 0) - counters0.get(k, 0))
-                        + (counters3.get(k, 0) - counters2.get(k, 0)) for k in COUNTERS
-                        if k in counters0},
-           "spans": spans(prof, lo, hi, n)}
-    readings = {}
-    for name in READERS:
-        value = load_reader(name)(ctx)
-        if value is not None:
-            readings[name] = value
+
+    def untraced_change(i: int) -> dict:
+        """Counter set ``i``'s change over the untraced stretches."""
+        a = run.counter_change(counters0[i], counters1[i])
+        b = run.counter_change(counters2[i], counters3[i])
+        return {k: a[k] + b[k] for k in a}
+
+    pipeline = untraced_change(0)
+    ctx = {"config": cfg, "traffic": tr, "steps": 2 * untraced * n, "pipeline": pipeline,
+           "pipeline_unprofiled": pipeline, "program_cache": untraced_change(1),
+           "step_device_ms": [], "step_interval_ms": [], "spans": spans(prof, lo, hi, n)}
     ranges = ctx["spans"]["ranges"]
     return {
         "device": torch.cuda.get_device_name(device) if cuda else "cpu",
-        "readings": readings,
+        "readings": readings(cell, ctx),
         "untraced_ms_per_step": before + after,
         "traced_ms_per_step": traced,
         "range_counts": {name: sum(1 for r in ranges if r["name"] == name)
                          for name in sorted({r["name"] for r in ranges})},
         "device_rows_named_accvlab": sum(1 for r in device_rows if r[0].startswith(PREFIX)),
         "idle_gaps": tracing.summarize(device_rows, host, lo, hi)["idle_gaps"],
-        "idle_gaps_by_phase": idle_gaps(device_rows, host, ranges, lo, hi),
+        "idle_gaps_by_phase": tracing.summarize(device_rows, host, lo, hi, ranges)["idle_gaps"],
         "blocking": blocking_summary([c for c in ctx["spans"]["blocking"]
                                       if c["range"] not in (None, "window")]),
     }

@@ -11,15 +11,21 @@ The window then runs steps for ``--seconds``; nothing is read back inside
 it, and one ``torch.cuda.synchronize()`` closes it. ``--trace 1`` reports
 the per-layer metrics instead of the end-to-end ones: its first
 ``breakdown_steps`` steps are profiled on the host and the card (the
-breakdown: the top device operations, the idle gaps named by the harness's
-host span), the next ``profile_steps`` on the card alone (the device's busy
-time and rows, and the time per step), and the steps after both give each
-step's card time. After the window the reference checks the run
-(``check.py``) and the last line of standard output is the result.
+breakdown: the top device operations, the idle gaps named by the innermost
+of the program's ranges and the harness's spans; and the program's ranges,
+``phases.spans``), the next ``profile_steps`` on the card alone (the
+device's busy time and rows, and the time per step), and the steps after
+both give each step's card time and the program's counters unslowed by the
+profiler. After the window the reference checks the run (``check.py``) and
+the last line of standard output is the result.
+
+What the program is, and its plain reference, come from the family module
+that the cell's configuration names (``families``); everything here holds
+for every family.
 
 ``--control`` runs no program: it prints the numbers that the reference,
 one precision step down, reads against the reference. ``--fault`` plants one
-of ``program.FAULTS``. Both serve to set the check's limits.
+of the family's ``FAULTS``. Both serve to set the check's limits.
 
 Without a card, or with fewer than the cell asks for, the run exits 2 and
 prints no result.
@@ -60,35 +66,29 @@ def forbidden_modules() -> list:
 def control(cell, seed: int, device) -> tuple:
     """The reference one precision step down against the reference, on the
     cell's checked batches and steps: ``(result, notes)``."""
-    from . import check, data
-    from .reference.centernet import leaf_specs
+    from . import check
     from .reference.layers import make_leaves
 
-    cfg, tr = cell.config, cell.traffic
-    inputs = data.make_inputs(seed, cfg, tr)
-    weights = make_leaves(leaf_specs(cfg), weight_generator(seed, device), device)
-    ref_inputs = check.Inputs(inputs, cfg, seed, device)
+    cfg, tr, fam = cell.config, cell.traffic, cell.family
+    inputs = fam.make_inputs(seed, cfg, tr)
+    weights = make_leaves(fam.leaf_specs(cfg), weight_generator(seed, device), device)
     echo = int(tr.get("echo_factor", 1))
     sources = [(k // echo, k % echo if echo > 1 else None) for k in range(CHECKED_STEPS)]
-    sound = [ref_inputs.batch(hb, e) for hb, e in sources]
-    low = [ref_inputs.batch(hb, e, tf32=True) for hb, e in sources]
-    ctl = check.reference_steps(cfg, weights, low, "fp8")
-    ref = check.reference_steps(cfg, weights, sound, "bfloat16")
+    sound = [fam.reference_batch(inputs, cfg, seed, s, device) for s in sources]
+    low = [fam.reference_batch(inputs, cfg, seed, s, device, low=True) for s in sources]
+    ctl = fam.reference_steps(cfg, weights, low, True)
+    ref = fam.reference_steps(cfg, weights, sound, False)
     values = check.numbers(ctl, ref, weights)
     values.pop("_worst")
-    values.update(check.pipeline_numbers([flat(b) for b in low], sound, int(cfg["num_cams"])))
+    values.update(fam.pipeline_numbers([fam.flat(b) for b in low], sound, cfg))
     ok, shown, other = check.verdict(values, limits(cell))
     return {"correct": ok, "control": True, "check": shown}, {"not compared": other}
 
 
-def flat(cams: list) -> dict:
-    """A reference batch under the program's output names."""
-    out = {}
-    for c, d in enumerate(cams):
-        out[f"cameras.[{c}].image"] = d["image"]
-        for k in ("heatmap", "active", "center", "offset", "hw"):
-            out[f"cameras.[{c}].annotations.{k}"] = d[k]
-    return out
+def counter_change(before: dict, after: dict) -> dict:
+    """The change of each numeric counter of ``before`` in ``after``."""
+    return {k: after[k] - v for k, v in before.items()
+            if isinstance(v, (int, float)) and not isinstance(v, bool)}
 
 
 def limits(cell) -> dict:
@@ -113,23 +113,22 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t0: float,
     import numpy as np
     import torch
 
-    from . import check, data, flops, program
+    from . import check, flops, phases
     from . import trace as tracing
-    from .reference.centernet import leaf_specs
     from .reference.layers import make_leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cuda = device.type == "cuda"
-    cfg, tr = cell.config, cell.traffic
+    cfg, tr, fam = cell.config, cell.traffic, cell.family
 
     marks = [("imports", time.perf_counter())]
-    inputs = data.make_inputs(seed, cfg, tr)
-    weights = make_leaves(leaf_specs(cfg), weight_generator(seed, device), device)
+    inputs = fam.make_inputs(seed, cfg, tr)
+    weights = make_leaves(fam.leaf_specs(cfg), weight_generator(seed, device), device)
     marks.append(("inputs and weights", time.perf_counter()))
-    feed = program.Feed(cfg, tr, inputs, seed, device, fault)
+    feed = fam.Feed(cfg, tr, inputs, seed, device, fault)
     marks.append(("pipeline", time.perf_counter()))
-    step = program.Step(cfg, weights, device, fault)
+    step = fam.Step(cfg, weights, device, fault)
     marks.append(("model", time.perf_counter()))
 
     # the checked steps: the window's own call and feed
@@ -207,7 +206,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t0: float,
                 window_span.__exit__(None, None, None)
                 prof.stop()
                 profs.append((prof, last - first, host_side))
-        if time.perf_counter() - t_start >= seconds and k >= profiled:
+        if trace and k == profiled:
+            stats_unprofiled = feed.stats()
+        # at least one step after the profiled stretches, for the readers of those
+        if time.perf_counter() - t_start >= seconds and k > profiled:
             break
     if cuda:
         torch.cuda.synchronize(device)
@@ -231,18 +233,22 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t0: float,
            # the intervals that end after the profiled stretches, none spanning their close
            "step_interval_ms": intervals[profiled:],
            "device_kind": torch.cuda.get_device_name(device) if cuda else "cpu"}
-    ctx["pipeline"] = {k2: stats1[k2] - stats0[k2] for k2 in
-                       ("produced", "consumed", "producer_busy_s", "consumer_wait_s")}
-    ctx["program_cache"] = {k2: cache1[k2] - cache0[k2] for k2 in ("hits", "misses", "declined")}
+    # every counter of the program's, as its change over the window
+    ctx["pipeline"] = counter_change(stats0, stats1)
+    ctx["program_cache"] = counter_change(cache0, cache1)
+    if trace:
+        # and from the profiled stretches' close, over the steps of step_device_ms
+        ctx["pipeline_unprofiled"] = counter_change(stats_unprofiled, stats1)
     ctx["peaks"] = flops.peaks(ctx["device_kind"])
-    ctx["step_flops"] = flops.centernet_step(cfg)
+    ctx["step_flops"] = fam.step_flops(cfg)
     breakdown = None
     for prof, n, host_side in profs:
         rows, host = tracing.profile_rows(prof)
         if host_side:
             win = [h for h in host if h[0] == "window"]
             lo, hi = (win[0][1], win[0][1] + win[0][2]) if win else (0.0, 0.0)
-            summary = tracing.summarize(rows, host, lo, hi)
+            ctx["spans"] = phases.spans(prof, lo, hi, n)
+            summary = tracing.summarize(rows, host, lo, hi, ctx["spans"]["ranges"])
             breakdown = {"device_ops": summary["device_ops"], "idle_gaps": summary["idle_gaps"]}
         else:
             # the device stretch: from its first device row to its last
@@ -260,14 +266,14 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t0: float,
     if cuda:
         torch.cuda.empty_cache()
 
-    ref_inputs = check.Inputs(inputs, cfg, seed, device)
-    ref_batches = [ref_inputs.batch(*s) for s in checked_src]
-    ref = check.reference_steps(cfg, weights, ref_batches, "bfloat16")
+    ref_batches = [fam.reference_batch(inputs, cfg, seed, s, device) for s in checked_src]
+    ref = fam.reference_steps(cfg, weights, ref_batches, False)
     values = check.numbers(prog, ref, weights)
     worst = values.pop("_worst")
-    values.update(check.pipeline_numbers(
+    values.update(fam.pipeline_numbers(
         checked_outs + window_outs,
-        ref_batches + [ref_inputs.batch(*s) for s in window_src], int(cfg["num_cams"])))
+        ref_batches + [fam.reference_batch(inputs, cfg, seed, s, device) for s in window_src],
+        cfg))
     ok, shown, other = check.verdict(values, limits(cell))
 
     metrics = {}

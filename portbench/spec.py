@@ -1,10 +1,11 @@
 """What a run measures, found by name from ``BENCHMARK.json``.
 
 A cell (``workloads[i]``) names a configuration and a traffic mix. The
-configuration's file is the one ``BENCHMARK.json`` gives; the traffic mix is
-``traffic/<traffic>.json``; each per-layer metric is read by
-``metrics/<name>.py``. Adding a configuration, a mix or a metric adds files
-and entries here, and edits no code.
+configuration's file is the one ``BENCHMARK.json`` gives, and it names the
+network's family (``families/<family>.py``, see ``families``); the traffic
+mix is ``traffic/<traffic>.json``; each per-layer metric is read by
+``metrics/<name>.py``. Adding a network, a configuration, a mix or a metric
+adds files and entries here, and edits no code.
 """
 
 from __future__ import annotations
@@ -12,8 +13,12 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
-from dataclasses import dataclass, field
-from typing import Callable, Dict, List
+import sys
+from dataclasses import dataclass
+from types import ModuleType
+from typing import Callable, Dict, List, Optional
+
+from . import families
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -27,7 +32,7 @@ def load_json(path: str) -> dict:
 @dataclass
 class Cell:
     """One workload of ``BENCHMARK.json`` with its configuration, traffic
-    mix and the metrics it reports."""
+    mix, the metrics it reports and its network's family module."""
 
     name: str
     chips: int
@@ -35,21 +40,42 @@ class Cell:
     traffic: dict
     end_to_end: List[dict]
     per_layer: List[dict]
-    readers: Dict[str, Callable] = field(default_factory=dict)
+    readers: Dict[str, Callable]
+    family: ModuleType
 
 
 def metric_applies(metric: dict, cell_name: str) -> bool:
     return "workloads" not in metric or cell_name in metric["workloads"]
 
 
+def names(kind: str, bench_dir: str = HERE) -> List[str]:
+    """The modules of ``<bench_dir>/<kind>/``, by name."""
+    return sorted(f[:-3] for f in os.listdir(os.path.join(bench_dir, kind))
+                  if f.endswith(".py") and not f.startswith("_"))
+
+
+def load_file(kind: str, name: str, bench_dir: str = HERE) -> ModuleType:
+    """``<bench_dir>/<kind>/<name>.py`` as a module; ``KeyError`` naming
+    the modules there when it has none."""
+    if name not in names(kind, bench_dir):
+        raise KeyError(f"no {kind} module {name!r} (has {names(kind, bench_dir)})")
+    path = os.path.join(bench_dir, kind, name + ".py")
+    spec = importlib.util.spec_from_file_location(
+        f"portbench_{kind}_" + name.replace(".", "_"), path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module  # dataclasses look their module up there
+    spec.loader.exec_module(module)
+    return module
+
+
 def load_reader(name: str, bench_dir: str = HERE) -> Callable:
     """``metrics/<name>.py``'s ``read(ctx)``."""
-    path = os.path.join(bench_dir, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location("portbench_metric_" + name.replace(".", "_"),
-                                                  path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return load_file("metrics", name, bench_dir).read
+
+
+def load_family(name: Optional[str], bench_dir: str = HERE) -> ModuleType:
+    """``families/<name>.py``, ``families.DEFAULT``'s for ``None``."""
+    return load_file("families", name or families.DEFAULT, bench_dir)
 
 
 def load_cell(workload: str, root: str = ROOT) -> Cell:
@@ -71,6 +97,6 @@ def build_cell(bench: dict, w: dict, root: str = ROOT) -> Cell:
     traffic = load_json(os.path.join(bench_dir, "traffic", w["traffic"] + ".json"))
     e2e = [m for m in bench["end_to_end"] if metric_applies(m, workload)]
     per_layer = [m for m in bench["per_layer"] if metric_applies(m, workload)]
-    cell = Cell(workload, int(w["chips"]), config, traffic, e2e, per_layer)
-    cell.readers = {m["name"]: load_reader(m["name"], bench_dir) for m in per_layer}
-    return cell
+    readers = {m["name"]: load_reader(m["name"], bench_dir) for m in per_layer}
+    return Cell(workload, int(w["chips"]), config, traffic, e2e, per_layer, readers,
+                load_family(config.get("family"), bench_dir))

@@ -8,7 +8,9 @@ import os
 import pytest
 
 from portbench import flops
-from portbench.spec import ROOT
+from portbench.spec import ROOT, load_family
+
+centernet = load_family("centernet")
 
 
 def config(name):
@@ -30,7 +32,7 @@ def test_centernet_step_of_a_tiny_network():
     deconv = 2 * 1 * 16  # one input pixel, a 4x4 kernel
     heads = 3 * 2 * 4 * 9 + 2 * 4 * (1 + 2 + 2)  # 2x2 outputs: a 3x3 conv per head, 1x1s of 1, 2, 2
     fwd = stem + blocks + deconv + heads
-    assert flops.centernet_step(cfg) == 3 * fwd - stem
+    assert centernet.step_flops(cfg) == 3 * fwd - stem
 
 
 def test_centernet_step_at_the_cell_size():
@@ -43,7 +45,7 @@ def test_centernet_step_at_the_cell_size():
     macs += 8 * 22 * 512 * 256 * 16 + 16 * 44 * 256 * 256 * 16 + 32 * 88 * 256 * 256 * 16
     macs += 64 * 176 * (3 * 256 * 64 * 9 + 64 * 14)
     fwd = 2 * n * macs
-    assert flops.centernet_step(cfg) == pytest.approx(3 * fwd - 2 * n * 128 * 352 * 3 * 49 * 64)
+    assert centernet.step_flops(cfg) == pytest.approx(3 * fwd - 2 * n * 128 * 352 * 3 * 49 * 64)
     # about 3.0 TFLOP forward, 8.9 a step
     assert fwd == pytest.approx(2.99e12, rel=0.01)
 
@@ -55,3 +57,14 @@ def test_raster_bound_counts_the_maps_twice_and_the_targets_once():
     assert flops.raster_bound_s(cfg, peak) == pytest.approx(
         (2 * maps + 96 * 32 * 17) / 3.35e12)
     assert flops.raster_bound_s(cfg, peak) * 1e3 == pytest.approx(0.0258, rel=0.01)
+
+
+def test_image_chain_bound_reads_the_frames_once_and_writes_the_images_once():
+    cfg = config("centernet_6cam")
+    peak = flops.peaks("NVIDIA H100 80GB HBM3")
+    frames = 16 * 372 * 1024 * 3  # one camera field of 16 samples, uint8
+    images = 16 * 256 * 704 * 3 * 4  # float32 at 256x704
+    assert frames + images == 52_887_552
+    assert flops.image_chain_bound_s(cfg, peak) == pytest.approx((frames + images) / 3.35e12)
+    # six fields a batch: the kernel table's 317.3 MB, 0.0947 ms
+    assert 6 * flops.image_chain_bound_s(cfg, peak) * 1e3 == pytest.approx(0.0947, rel=0.001)

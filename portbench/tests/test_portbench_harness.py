@@ -14,8 +14,8 @@ import time
 import pytest
 import torch
 
-from portbench import program, run
-from portbench.spec import ROOT, load_cell
+from portbench import run
+from portbench.spec import ROOT, load_cell, load_family
 from portbench.tests.tiny import CELLS, SEED, tiny_cell
 
 CPU = torch.device("cpu")
@@ -49,6 +49,76 @@ def test_new_config_traffic_and_metric_are_found_by_name(tmp_path):
     assert cell.config["head_conv"] == 32 and cell.traffic["num_threads"] == 2
     assert cell.readers["steps_seen"]({"steps": 7}) == 7.0
     assert "steps_seen" not in load_cell("centernet_6cam.fed_frames", root=str(tmp_path)).readers
+
+
+def test_a_second_family_is_taken_by_files_alone(tmp_path):
+    """A network that is not CenterNet's (``tests/toy``), with its own plain
+    reference, operation count and a step that carries state, added to a
+    copy of the benchmark as new files and entries only: the cell is found
+    by name, a run on the CPU is correct, and a step that drops its state
+    is not."""
+    bench_dir = tmp_path / "portbench"
+    shutil.copytree(os.path.join(ROOT, "portbench"), bench_dir,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in bench_dir.rglob("*") if p.is_file()}
+    toy = os.path.join(ROOT, "portbench", "tests", "toy")
+    for src, dst in (("family.py", "families/toy.py"), ("reference.py", "reference/toy.py"),
+                     ("toy_2cam.json", "configs/toy_2cam.json")):
+        assert not (bench_dir / dst).exists()
+        shutil.copy(os.path.join(toy, src), bench_dir / dst)
+    traffic = json.load(open(os.path.join(ROOT, "portbench/traffic/fed_frames.json")))
+    (bench_dir / "traffic/toy_frames.json").write_text(json.dumps({**traffic, "num_threads": 2}))
+    bench = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
+    bench["configs"].append({"name": "toy_2cam", "source": "a test", "reduced": [],
+                             "file": "portbench/configs/toy_2cam.json", "why": "a test"})
+    bench["workloads"].append({"name": "toy_2cam.toy_frames", "config": "toy_2cam",
+                               "traffic": "toy_frames", "chips": 1, "why": "a test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    cell = tiny_cell("toy_2cam.toy_frames", root=str(tmp_path))
+    assert cell.family.FAULTS == ("stateless",) and cell.config["family"] == "toy"
+    res, _ = run.run_cell(cell, SEED, 0.2, False, CPU, time.perf_counter())
+    assert res["correct"] is True, res["check"]
+    res, _ = run.run_cell(tiny_cell("toy_2cam.toy_frames", root=str(tmp_path)), SEED, 0.2, False,
+                          CPU, time.perf_counter(), fault="stateless")
+    assert res["correct"] is False
+    assert res["check"]["loss_gap"][0] > res["check"]["loss_gap"][1]
+    assert res["check"]["first_loss_gap"][0] <= res["check"]["first_loss_gap"][1]
+    assert all(p.read_bytes() == b for p, b in before.items())
+
+
+def test_an_unknown_family_is_refused_with_the_families_there():
+    with pytest.raises(KeyError, match=r"no families module 'detr'.*'centernet'"):
+        load_family("detr")
+    assert load_family(None).FAULTS == load_family("centernet").FAULTS
+
+
+def test_a_traced_run_reads_the_program_spans_and_counters():
+    """The host-traced stretch's ranges (``ctx["spans"]``) and the
+    executor's counters reach the readers of the cell that read them."""
+    cell = tiny_cell("centernet_6cam.fed_frames")
+    res, _ = run.run_cell(cell, SEED, 0.5, True, CPU, time.perf_counter())
+    assert {"dispatch_ms.frames", "transfer_host_ms.frames", "stage_device_ms.frames",
+            "loss_device_ms.centernet", "optimizer_device_ms.centernet",
+            "host_blocked_ms"} <= set(res["metrics"])
+    assert (res["metrics"]["transfer_host_ms.frames"]["value"]
+            <= res["metrics"]["dispatch_ms.frames"]["value"])
+
+
+def test_the_counters_after_the_profiled_stretches_are_read_apart():
+    """A traced run takes the program's counters over the window and, apart,
+    from the profiled stretches' close to the window's: the readers of the
+    latter see only the steps after the profiler; an untraced run takes no
+    such snapshot."""
+    cell = tiny_cell("centernet_6cam.fed_frames")
+    seen = {}
+    read = cell.readers["dispatch_ms.frames"]
+    cell.readers["dispatch_ms.frames"] = lambda ctx: seen.update(ctx) or read(ctx)
+    res, _ = run.run_cell(cell, SEED, 1.0, True, CPU, time.perf_counter())
+    profiled = int(cell.traffic["breakdown_steps"]) + int(cell.traffic["profile_steps"])
+    assert seen["pipeline_unprofiled"]["consumed"] == res["attempted"] - profiled > 0
+    assert seen["pipeline"]["consumed"] == res["attempted"]
+    assert 0 < seen["pipeline_unprofiled"]["device_stage_s"] < seen["pipeline"]["device_stage_s"]
 
 
 @pytest.mark.parametrize("trace", [False, True])
@@ -149,9 +219,7 @@ def test_without_a_card_the_run_fails_and_prints_no_result():
 
 
 def test_the_harness_weights_load_into_the_program():
-    from portbench.reference.centernet import leaf_specs
-
     for name in CELLS:
-        cfg = tiny_cell(name).config
-        leaves = {n: torch.zeros(s) for n, s, _ in leaf_specs(cfg)}
-        program.Step(cfg, leaves, CPU, None)
+        cell = tiny_cell(name)
+        leaves = {n: torch.zeros(s) for n, s, _ in cell.family.leaf_specs(cell.config)}
+        cell.family.Step(cell.config, leaves, CPU, None).close()

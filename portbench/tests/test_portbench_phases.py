@@ -12,6 +12,12 @@ from portbench import trace as tracing
 from portbench.spec import load_reader
 from portbench.tests.tiny import SEED, tiny_cell
 
+#: the cell's per-layer metrics that read the program's spans and counters
+READERS = ("dispatch_ms.frames", "transfer_host_ms.frames", "stage_device_ms.frames",
+           "loss_device_ms.centernet", "optimizer_device_ms.centernet", "host_blocked_ms")
+#: the cell's others that read the window's counters, which the phases take too
+WINDOW_COUNTERS = ("input_wait_ms.frames", "host_busy_ms.frames", "program_builds")
+
 
 def _ctx():
     ranges = [
@@ -40,8 +46,8 @@ def _ctx():
                 {"name": "cudaDeviceSynchronize", "start": 0.190, "dur": 0.080, "range": "window"},
                 {"name": "cudaDeviceSynchronize", "start": 0.300, "dur": 0.010, "range": None}]
     return {"steps": 2,
-            "pipeline": {"consumed": 4, "device_stage_s": 0.040, "transfers": 2,
-                         "transfer_s": 0.010},
+            "pipeline_unprofiled": {"consumed": 4, "device_stage_s": 0.040, "transfers": 2,
+                                    "transfer_s": 0.010},
             "spans": {"steps": 2, "ranges": ranges, "blocking": blocking}}
 
 
@@ -57,17 +63,18 @@ def test_each_reader_on_synthetic_spans(name, want):
     assert load_reader(name)(_ctx()) == pytest.approx(want)
 
 
-@pytest.mark.parametrize("name", phases.READERS)
+@pytest.mark.parametrize("name", READERS)
 def test_a_program_without_the_ranges_or_the_counter_reads_nothing(name):
     """What a program that opens no range and counts no ``transfer_s`` gives:
     the readers of them return ``None``; none raises."""
     ctx = _ctx()
-    ctx["pipeline"] = {k: v for k, v in ctx["pipeline"].items() if k != "transfer_s"}
+    ctx["pipeline_unprofiled"] = {k: v for k, v in ctx["pipeline_unprofiled"].items()
+                                  if k != "transfer_s"}
     ctx["spans"]["ranges"] = []
     ctx["spans"]["blocking"] = []
     got = load_reader(name)(ctx)
     assert got == {"dispatch_ms.frames": 10.0, "host_blocked_ms": 0.0}.get(name)
-    assert load_reader(name)({"pipeline": {"consumed": 0}}) is None
+    assert load_reader(name)({"pipeline_unprofiled": {"consumed": 0}}) is None
 
 
 def test_gaps_take_the_innermost_program_range_and_keep_their_lengths():
@@ -76,7 +83,7 @@ def test_gaps_take_the_innermost_program_range_and_keep_their_lengths():
     ranges = [{"name": "pipeline.device_dispatch", "start": 0.008, "dur": 0.020},
               {"name": "pipeline.transfer", "start": 0.009, "dur": 0.005}]
     old = tracing.summarize(device, host, 0.0, 0.1)["idle_gaps"]
-    new = phases.idle_gaps(device, host, ranges, 0.0, 0.1)
+    new = tracing.summarize(device, host, 0.0, 0.1, ranges)["idle_gaps"]
     assert [g[1] for g in new] == [g[1] for g in old]
     # a gap takes the range open at its start: the transfer inside the
     # dispatch inside the feed; the feed alone once the dispatch closed
@@ -90,8 +97,8 @@ def test_blocking_names_and_innermost():
     assert phases.blocking_name("cudaMemcpy_v2") == "cudaMemcpy"
     assert phases.blocking_name("cudaMemcpyAsync") is None
     assert phases.blocking_name("cudaLaunchKernel") is None
-    assert phases.innermost([("a", 0.0, 1.0), ("b", 0.2, 0.1)], 0.25) == "b"
-    assert phases.innermost([("a", 0.0, 1.0)], 1.0) is None
+    assert tracing.innermost([("a", 0.0, 1.0), ("b", 0.2, 0.1)], 0.25) == "b"
+    assert tracing.innermost([("a", 0.0, 1.0)], 1.0) is None
 
 
 def test_the_phases_run_on_the_tiny_cell():
@@ -106,6 +113,6 @@ def test_the_phases_run_on_the_tiny_cell():
         "train_step.backward": n, "train_step.forward": n, "train_step.loss": n,
         "train_step.optimizer": 2 * n}
     assert line["device_rows_named_accvlab"] == 0
-    assert set(line["readings"]) == set(phases.READERS)
+    assert set(line["readings"]) == set(READERS + WINDOW_COUNTERS)
     assert line["readings"]["transfer_host_ms.frames"] <= line["readings"]["dispatch_ms.frames"]
     assert len(line["untraced_ms_per_step"]) == 2 and line["traced_ms_per_step"] > 0

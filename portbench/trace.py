@@ -9,7 +9,7 @@ idle gaps are named by the host span that was open when the card fell idle.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 Row = Tuple[str, float, float]  # name, start s, duration s
 
@@ -45,16 +45,26 @@ def union(rows: List[Row], lo: float, hi: float) -> List[Tuple[float, float]]:
     return [(a, b) for a, b in merged]
 
 
-def summarize(device: List[Row], host: List[Row], lo: float, hi: float) -> Dict:
+def innermost(ranges: List[Row], t: float) -> Optional[str]:
+    """The name of the shortest of ``ranges`` (name, start s, duration s)
+    open at ``t``."""
+    open_ = [r for r in ranges if r[1] <= t < r[1] + r[2]]
+    return min(open_, key=lambda r: r[2])[0] if open_ else None
+
+
+def summarize(device: List[Row], host: List[Row], lo: float, hi: float,
+              ranges: Sequence[dict] = ()) -> Dict:
+    """Busy time, the top device operations and the longest idle gaps of
+    ``[lo, hi]``; a gap is named by the innermost of the harness's spans
+    (``host``) and the program's ``ranges`` (``phases.spans``) open at its
+    start, ``outside_steps`` when none is."""
     merged = union(device, lo, hi)
     busy = sum(b - a for a, b in merged)
-    gaps = []
+    opened = [h for h in host if h[0] != "window"] + [
+        (r["name"], r["start"], r["dur"]) for r in ranges]
     edges = [lo] + [x for ab in merged for x in ab] + [hi]
-    for a, b in zip(edges[0::2], edges[1::2]):
-        if b > a:
-            open_spans = [h for h in host if h[1] <= a < h[1] + h[2] and h[0] != "window"]
-            name = min(open_spans, key=lambda h: h[2])[0] if open_spans else "outside_steps"
-            gaps.append([name, b - a])
+    gaps = [[innermost(opened, a) or "outside_steps", b - a]
+            for a, b in zip(edges[0::2], edges[1::2]) if b > a]
     gaps.sort(key=lambda g: -g[1])
     totals: Dict[str, float] = {}
     for name, s, d in device:
